@@ -1,0 +1,113 @@
+# Wrapper of the CUDA beam-search kernel (csrc/beam_search.cu).
+#
+# Port of sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py without its
+# hotword branch. beam_search_batch_cuda is the kernel's wrapper: for CPU
+# tensors it runs the plain twin ops/beam_search.beam_search_batch (hotwords
+# included); for CUDA tensors it launches the kernel, which runs every frame
+# and the backward walk over its records in one launch, or raises.
+
+from __future__ import annotations
+
+import torch
+
+from sherpa_vietnamese_asr_tpu_torch.models.rnnt import Decoder, Joiner, RnntConfig
+from sherpa_vietnamese_asr_tpu_torch.ops import cuda_lib
+from sherpa_vietnamese_asr_tpu_torch.ops.beam_search import (
+    BeamResult,
+    HotwordTables,
+    beam_search_batch,
+    metric_constants,
+)
+
+# Kernel launches of beam_search_batch_cuda() on CUDA tensors.
+launches = 0
+
+MAX_BEAM = 8
+_SMEM_LIMIT = 227 * 1024
+
+
+def _kernel_smem_bytes(t, e, d, j, v) -> int:
+    return (MAX_BEAM * (v + j + d) + e) * 4 + 2 * MAX_BEAM * t * 2
+
+
+def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size):
+    global launches
+    dev = enc_out.device
+    b, t, e = enc_out.shape
+    v, d, j = cfg.vocab_size, cfg.decoder_dim, cfg.joiner_dim
+    conv_w = decoder.conv_weight.detach()
+    ipg, k = conv_w.shape[1], conv_w.shape[2]
+    if not 1 <= beam_size <= MAX_BEAM:
+        raise ValueError(f"beam kernel takes beam_size 1..{MAX_BEAM}, got {beam_size}")
+    if not 2 <= v <= 65536 or k > 4 or k != cfg.context_size:
+        raise ValueError("beam kernel: vocab must be 2..65536 and context_size <= 4")
+    if enc_out.dtype != torch.float32 or e != cfg.encoder_out_dim:
+        raise ValueError(f"enc_out must be float32 [B, T, {cfg.encoder_out_dim}]")
+    if enc_lens.shape != (b,):
+        raise ValueError("enc_lens must be [B]")
+    smem = _kernel_smem_bytes(t, e, d, j, v)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"beam kernel state ({smem} B) exceeds shared memory "
+                         f"at T={t}, V={v}")
+    f32, i32 = torch.float32, torch.int32
+    # Weights in the kernel's layout, already contiguous float32; the
+    # joiner's transposed copies are cached on the module.
+    weights = [decoder.embedding.detach(), conv_w, *joiner.kernel_layout()]
+    for w in weights:
+        if w.device != dev or w.dtype != f32 or not w.is_contiguous():
+            raise ValueError(f"beam kernel: weights must be contiguous float32 "
+                             f"on {dev}")
+    args = [enc_out.contiguous(), enc_lens.to(device=dev, dtype=i32).contiguous(),
+            *weights]
+    recs = [torch.empty((b, t, beam_size), dtype=i32, device=dev),
+            torch.empty((b, t, beam_size), dtype=i32, device=dev),
+            torch.empty((b, t, beam_size), dtype=f32, device=dev),
+            torch.empty((b, t, beam_size, 4), dtype=f32, device=dev)]
+    res = BeamResult(
+        tokens=torch.empty((b, t), dtype=i32, device=dev),
+        frames=torch.empty((b, t), dtype=i32, device=dev),
+        tok_logp=torch.empty((b, t), dtype=f32, device=dev),
+        entropy=torch.empty((b, t, 4), dtype=f32, device=dev),
+        num_tokens=torch.empty((b,), dtype=i32, device=dev),
+        total_logp=torch.empty((b,), dtype=f32, device=dev))
+    if b == 0:
+        return res
+    if t == 0:
+        for x in (res.tokens, res.frames, res.tok_logp, res.entropy,
+                  res.num_tokens, res.total_logp):
+            x.zero_()
+        return res
+    _, max_entropy, tsallis_max = metric_constants(v)
+    outs = [res.tokens, res.frames, res.tok_logp, res.entropy,
+            res.num_tokens, res.total_logp]
+    lib = cuda_lib.library()
+    status = lib.svt_beam_search(
+        *[x.data_ptr() for x in args + recs + outs],
+        b, t, e, d, ipg, k, j, v, beam_size, cfg.blank_id,
+        float(tsallis_max), float(max_entropy), cuda_lib.stream(dev))
+    cuda_lib.check(status, "svt_beam_search")
+    launches += 1
+    return res
+
+
+def beam_search_batch_cuda(enc_out, enc_lens, decoder: Decoder,
+                           joiner: Joiner, cfg: RnntConfig,
+                           beam_size: int = 8,
+                           hw_tables: HotwordTables | None = None) -> BeamResult:
+    """Modified beam search with the shapes and semantics of
+    ops/beam_search.beam_search_batch.
+
+    enc_out: [N, T, E] float32; enc_lens: [N]. CPU tensors run the plain
+    twin; CUDA tensors launch the kernel (beam_size 1..8, no hotwords).
+    """
+    if enc_out.device.type == "cpu":
+        return beam_search_batch(enc_out, enc_lens, decoder, joiner, cfg,
+                                 beam_size=beam_size, hw_tables=hw_tables)
+    if enc_out.device.type != "cuda":
+        raise ValueError(f"beam search: unsupported device {enc_out.device}")
+    if hw_tables is not None:
+        raise NotImplementedError(
+            "hotword boosting is not ported to the CUDA beam kernel yet")
+    with torch.no_grad():
+        return _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg,
+                                 beam_size)
