@@ -8,10 +8,19 @@ Phases (any failure raises and the script exits non-zero):
      and cuDNN convolutions;
   2. build: compile the package's CUDA kernels (csrc/*.cu) from source;
   3. kernel parity: each kernel against its plain PyTorch twin on the card,
-     at the shapes the transcription path gives it, with both median times;
-  4. slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on three
-     WAV files with a random-weight Zipformer-30M model (vocab 2000, beam 8,
-     float32), checking the result contract and that every kernel ran.
+     at the shapes the transcription paths give it, with both median times
+     (the whole-layer kernel at all six Zipformer-30M stack shapes with
+     perturbed biases, norm and bypasses, where six planted faults of the
+     twin must fail the same gate; the beam kernel with and without a
+     hotword table);
+  4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
+     three WAV files with a random-weight Zipformer-30M model (vocab 2000,
+     beam 8, float32), checking the result contract and that every kernel of
+     the path ran;
+  5. bfloat16 slice: the same entry point with the bfloat16 Zipformer-30M
+     (same weights) carrying a hotword table, on two files; the whole-layer
+     kernel and the hotword beam must run, and the bf16 encoder output must
+     agree with the float32 encoder's on one batch (cosine >= 0.99).
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -37,6 +46,19 @@ ATTN_SHAPES = (  # (stack, T, H) of Zipformer-30M at a 33 s chunk
 )
 BEAM_LENS_64 = [64, 33, 1, 64, 17, 50, 64, 8]
 BEAM_LENS_823 = [823, 611, 1, 823, 402, 0, 823, 77]
+BEAM_HW_LENS_64 = [64, 0, 33, 64, 1, 50, 64, 8]
+LAYER_SHAPES = (  # (stack, t_ds) of Zipformer-30M at a 33 s chunk
+    (0, 1646), (1, 823), (2, 412), (3, 206), (4, 412), (5, 823))
+# Whole-layer kernel vs its twin, over valid rows (all rows of the lens-0
+# chunk): mean and max |kernel - twin| as fractions of mean |twin|.
+# Measured at all six shapes with perturbed biases, norm and bypasses
+# (NVIDIA H100 80GB HBM3, 700 W): sound, mean 7.5e-4 to 1.0e-3 and max
+# 1.50e-2 to 2.08e-2; the twin with a rel-pos term 1% off, mean 1.67e-3 to
+# 2.13e-3 and max 2.3e-2 to 3.6e-2 (the other planted faults of
+# layer_faults() read 5x higher or more). The mean gate sits between the
+# two; the max gate only catches gross faults.
+LAYER_GATE_MEAN, LAYER_GATE_MAX = 1.3e-3, 0.03
+COSINE_GATE = 0.99  # bf16 vs float32 encoder output, per chunk
 
 
 def log(msg):
@@ -261,14 +283,166 @@ def check_beam(dev, model):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-# ---------------------------------------------------------------- phase 4
+def perturbed_layer(layer, gen):
+    """A copy of `layer` with N(0, 0.1) added to every bias, depthwise bias,
+    the BiasNorm bias and log-scale and both bypass scales. Random init
+    leaves the biases zero and both bypasses at 0.5, which would hide a
+    kernel that drops a bias, ignores the log-scale or swaps the bypasses."""
+    import copy
 
-def phase_slice(dev, model, tmp):
     import torch
 
-    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    layer = copy.deepcopy(layer)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bias", "dw_bias", "log_scale", "bypass_scale",
+                                           "bypass_mid_scale"):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(p.device))
+    return layer
+
+
+def layer_faults(el, flat):
+    """Planted faults of the twin: name -> (operands, rel_pos_scores). Each
+    must fail the gate against the kernel at every stack shape."""
+    import torch
+
+    rel = el.rel_pos_scores
+
+    def without(i):
+        return flat[:i] + (torch.zeros_like(flat[i]),) + flat[i + 1:]
+
+    return {"rel_pos_1pct_off": (flat, lambda pq, pl: rel(pq, pl) * 1.01),
+            "skew_off_by_one": (flat, lambda pq, pl: rel(pq, pl[:, 1:])),
+            "bypasses_swapped": (flat[:40] + (flat[41], flat[40]), rel),
+            "attn_in_bias_dropped": (without(1), rel),
+            "conv2_dw_bias_dropped": (without(35), rel),
+            "norm_log_scale_dropped": (without(39), rel)}
+
+
+def layer_errors(got, ref, lens_list):
+    """(mean, max) |got - ref| over valid rows (all rows of a lens-0 chunk)
+    as fractions of mean |ref| there, and the max itself."""
+    import torch
+
+    tp = ref.shape[1]
+    diff = torch.cat([(got[i, : (ln or tp)] - ref[i, : (ln or tp)]).abs().flatten()
+                      for i, ln in enumerate(lens_list)])
+    scale = float(torch.cat([ref[i, : (ln or tp)].abs().flatten()
+                             for i, ln in enumerate(lens_list)]).mean())
+    return float(diff.mean()) / scale, float(diff.max()) / scale, float(diff.max())
+
+
+def layer_gate(mean, mx):
+    return mean <= LAYER_GATE_MEAN and mx <= LAYER_GATE_MAX
+
+
+def check_encoder_layer(dev, model):
+    """The whole-layer kernel against its twin at every stack shape: batch 8,
+    mixed lens (0, 1 and full among them), layer 0 of each stack of the bf16
+    random Zipformer-30M with perturbed biases, norm and bypasses, x ~ N(0, 1)
+    on valid frames and zero padding. The twin with each planted fault of
+    layer_faults() must fail the same gate."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import _padded_rev_pos_emb
+    from sherpa_vietnamese_asr_tpu_torch.ops import encoder_layer as el
+
+    cfg = model.zip_cfg
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    out, failures = None, []
+    for stack, t in LAYER_SHAPES:
+        layer = perturbed_layer(model.encoder.stacks[stack].layers[0], gen)
+        d, h = cfg.encoder_dim[stack], cfg.num_heads[stack]
+        tp = -(-t // el.R) * el.R
+        lens_list = [t, t // 2, 0, 1, (3 * t) // 4, t, 17, 64]
+        x = torch.zeros((SLICE_BATCH, tp, d))
+        x[:, :t] = torch.randn((SLICE_BATCH, t, d), generator=gen)
+        x = x.to(dev)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        rev = torch.from_numpy(_padded_rev_pos_emb(t, tp, cfg.pos_dim)).to(dev)
+        flat, w_pos = layer.kernel_layout()
+        poslin = el.poslin_bf16(rev, w_pos, h)
+
+        def twin(operands=flat):
+            return el.encoder_layer_plain(operands, x, poslin, lens, h, cfg.query_head_dim,
+                                          cfg.pos_head_dim, cfg.value_head_dim)
+
+        got = el.encoder_layer(layer, x, rev, lens)
+        mean, mx, max_abs = layer_errors(got, twin(), lens_list)
+        finite = bool(torch.isfinite(got).all())
+        fault_errs, rel_pos_scores = {}, el.rel_pos_scores
+        for name, (operands, rel) in layer_faults(el, flat).items():
+            el.rel_pos_scores = rel
+            try:
+                fault_errs[name] = layer_errors(got, twin(operands), lens_list)[:2]
+            finally:
+                el.rel_pos_scores = rel_pos_scores
+        ms = time_ms(lambda: el.encoder_layer(layer, x, rev, lens), reps=5, warmup=1)
+        plain_ms = time_ms(twin, reps=3, warmup=1)
+        log(f"encoder_layer: stack {stack} B {SLICE_BATCH} T {t} T_pad {tp} D {d} H {h} "
+            f"K {cfg.cnn_module_kernel[stack]} lens {lens_list} "
+            f"max/scale {mx:.3e} mean/scale {mean:.3e} "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        log(f"encoder_layer: stack {stack} planted faults (mean/scale, max/scale): " + ", ".join(
+            f"{name} ({m:.3e}, {hi:.3e})" for name, (m, hi) in fault_errs.items()))
+        if not (finite and layer_gate(mean, mx)):
+            failures.append(f"stack {stack}: kernel vs twin outside the gate")
+        failures += [f"stack {stack}: planted fault {name} passes the gate"
+                     for name, errs in fault_errs.items() if layer_gate(*errs)]
+        if out is None:  # the stack-0 shape is the one the summary reports
+            out = {"name": "encoder_layer_bf16",
+                   "source": "sherpa_vietnamese_asr_tpu_torch/csrc/encoder_layer.cu",
+                   "replaces": "sherpa_vietnamese_asr_tpu/ops/encoder_layer.py:109",
+                   "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        del got
+    assert not failures, "encoder layer parity: " + "; ".join(failures)
+    return out
+
+
+def check_beam_hotwords(dev, model, tables):
+    """The beam kernel's hotword branch against the twin at T = 64 and 823
+    (mixed lens, one 0): identical tokens, and tokens that differ from the
+    same batch decoded without hotwords."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search, beam_search_cuda
+
+    cfg = model.rnnt_cfg
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    args = {}
+    for t, lens_list in ((64, BEAM_HW_LENS_64), (823, BEAM_LENS_823)):
+        enc = torch.randn((SLICE_BATCH, t, 256), generator=gen).to(dev)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        args[t] = (enc, lens, model.decoder, model.joiner, cfg, 8)
+        got = beam_search_cuda.beam_search_batch_cuda(*args[t], hw_tables=tables)
+        ref = beam_search.beam_search_batch(*args[t], hw_tables=tables)
+        err = _beam_compare(f"hotwords S={tables.next_state.shape[0]} T={t} mixed lens",
+                            got, ref)
+        plain = beam_search_cuda.beam_search_batch_cuda(*args[t])
+        torch.cuda.synchronize()
+        n_diff = int((plain.tokens != got.tokens).sum())
+        log(f"beam hotwords T={t}: {n_diff} token positions differ from the decode "
+            f"without hotwords; total_logp {got.total_logp.tolist()}")
+        assert n_diff > 0, f"T={t}: the hotword table changed no token"
+    ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args[823], hw_tables=tables),
+                 reps=5, warmup=1)
+    ms_plain_kernel = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args[823]),
+                              reps=5, warmup=1)
+    plain_ms = time_ms(lambda: beam_search.beam_search_batch(*args[823], hw_tables=tables),
+                       reps=3, warmup=1)
+    log(f"beam hotwords: B {SLICE_BATCH} T 823 V {cfg.vocab_size} beam 8 "
+        f"S {tables.next_state.shape[0]} kernel {ms:.3f} ms, kernel without hotwords "
+        f"{ms_plain_kernel:.3f} ms, plain {plain_ms:.3f} ms")
+    return {"name": "beam_search_hotwords",
+            "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
+            "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:219",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+# ---------------------------------------------------------------- phase 4-5
+
+def write_inputs(tmp):
     from sherpa_vietnamese_asr_tpu_torch.models.golden import golden_audio
-    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
     from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import am_tone
     from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
 
@@ -278,20 +452,23 @@ def phase_slice(dev, model, tmp):
     for name, x in files.items():
         paths[name] = os.path.join(tmp, f"{name}.wav")
         write_wav(paths[name], x, SR)
+    return files, paths
 
-    counters = (fbank, attention, beam_search_cuda)
-    for mod in counters:
-        mod.launches = 0
-    results = {}
-    for name in ("golden_6s", "am_tone_95s", "short_0.3s"):
+
+def run_requests(model, files, paths, names):
+    """One TranscriberPipeline request per file, checking the result contract."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+
+    for name in names:
         t0 = time.perf_counter()
         res = TranscriberPipeline(paths[name], model, config={"bypass_vad": True}).run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        results[name] = res
         n_words = sum(len(s["raw_words"]) for s in res["segments"])
-        log(f"slice: {name} wall {wall:.3f} s duration {res['duration_sec']:.2f} s "
-            f"segments {len(res['segments'])} words {n_words} "
+        log(f"slice {model.zip_cfg.compute_dtype}: {name} wall {wall:.3f} s duration "
+            f"{res['duration_sec']:.2f} s segments {len(res['segments'])} words {n_words} "
             f"provider {res['asr_provider_info']}")
         assert abs(res["duration_sec"] - len(files[name]) / SR) < 1e-6, "duration"
         assert res["asr_provider_info"]["backend"] == "torch"
@@ -301,16 +478,101 @@ def phase_slice(dev, model, tmp):
             assert res["segments"] and n_words > 0, f"{name}: no words"
             assert all(np.isfinite(w["prob"]) for s in res["segments"]
                        for w in s["raw_words"])
-    launches = {"fbank_logmel": fbank.launches,
-                "attention_weights": attention.launches,
-                "beam_search": beam_search_cuda.launches}
-    log(f"slice launches: {launches}")
-    assert all(n > 0 for n in launches.values()), "a kernel never ran in the slice"
+
+
+def warm_request(model, paths):
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
 
     t0 = time.perf_counter()  # the 95 s request again, warm
     TranscriberPipeline(paths["am_tone_95s"], model, config={"bypass_vad": True}).run()
     torch.cuda.synchronize()
-    log(f"slice: am_tone_95s warm wall {time.perf_counter() - t0:.3f} s")
+    log(f"slice {model.zip_cfg.compute_dtype}: am_tone_95s warm wall "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def phase_slice(dev, model, tmp):
+    """The float32 path: fbank, attention and beam kernels."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+
+    files, paths = write_inputs(tmp)
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    run_requests(model, files, paths, ("golden_6s", "am_tone_95s", "short_0.3s"))
+    launches = {"fbank_logmel": fbank.launches,
+                "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    log(f"slice float32 launches: {launches}")
+    assert all(n > 0 for n in launches.values()), "a kernel never ran in the slice"
+    warm_request(model, paths)
+    return launches
+
+
+def encoder_cosine(model32, model16, files):
+    """Per-chunk cosine of the bf16 and float32 encoder outputs on one
+    decoder batch of the 95 s file (valid frames only): the bf16 encoder of
+    the slice (the whole-layer kernel on every stack), and the same weights
+    with layer_kernel="never" (the plain bf16 layer with the attention
+    kernel)."""
+    import dataclasses
+
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import ZipformerEncoder
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import (
+        BatchedChunkDecoder,
+        fbank_batch,
+    )
+
+    x = files["am_tone_95s"]
+    spans = [(s, min(s + 30 * SR, len(x))) for s in range(0, len(x) - 3 * SR, 27 * SR)]
+    audio, lens = BatchedChunkDecoder(model16)._build_batch(
+        x, spans + [(0, 1)] * (SLICE_BATCH - len(spans)))
+    dev = model16.device
+    never = ZipformerEncoder(dataclasses.replace(model16.zip_cfg, layer_kernel="never"),
+                             device=dev).eval()
+    never.load_state_dict(model16.encoder.state_dict())
+    with torch.no_grad():
+        feats = fbank_batch(torch.from_numpy(audio).to(dev))
+        n = torch.from_numpy((lens + 80) // 160).to(dev)
+        e32, l32 = model32.encoder(feats, n)
+        for label, encoder in (("layer kernel", model16.encoder),
+                               ('layer_kernel="never"', never)):
+            e16, l16 = encoder(feats, n)
+            assert torch.equal(l32, l16)
+            cos = [float(torch.nn.functional.cosine_similarity(
+                e16[i, :ln].flatten(), e32[i, :ln].flatten(), dim=0))
+                for i, ln in enumerate(l32.tolist()[: len(spans)])]
+            log(f"slice bfloat16 ({label}): encoder output vs float32, chunks "
+                f"{len(spans)} frames {l32.tolist()[: len(spans)]} cosine "
+                f"{[round(c, 6) for c in cos]}")
+            assert min(cos) >= COSINE_GATE, f"bf16 encoder ({label}) far from float32"
+
+
+def phase_slice_bf16(dev, model16, model32, tmp):
+    """The bfloat16 path with a hotword table: fbank, the whole-layer kernel
+    on every stack and the beam kernel's hotword branch."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import (
+        attention,
+        beam_search_cuda,
+        encoder_layer,
+        fbank,
+    )
+
+    files, paths = write_inputs(tmp)
+    for mod in (fbank, attention, encoder_layer, beam_search_cuda):
+        mod.launches = 0
+    beam_search_cuda.hotword_launches = 0
+    run_requests(model16, files, paths, ("golden_6s", "am_tone_95s"))
+    launches = {"fbank_logmel": fbank.launches,
+                "encoder_layer_bf16": encoder_layer.launches,
+                "beam_search_hotwords": beam_search_cuda.hotword_launches}
+    log(f"slice bfloat16 launches: {launches} (attention kernel "
+        f"{attention.launches}, beam without hotwords {beam_search_cuda.launches})")
+    assert all(n > 0 for n in launches.values()), "a kernel never ran in the slice"
+    warm_request(model16, paths)
+    encoder_cosine(model32, model16, files)
     return launches
 
 
@@ -326,20 +588,28 @@ def main():
     phase_build()
 
     from sherpa_vietnamese_asr_tpu_torch.models.registry import random_asr_model
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import synthetic_hotword_tables
 
     t0 = time.perf_counter()
     model = random_asr_model(vocab_size=2000, beam_size=8, compute_dtype="float32",
                              device=dev)
-    log(f"model: Zipformer-30M random (seed 0) on {dev} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    kernels = [check_fbank(dev), check_attention(dev, model), check_beam(dev, model)]
+    model16 = random_asr_model(vocab_size=2000, beam_size=8, compute_dtype="bfloat16",
+                               device=dev)
+    tables = synthetic_hotword_tables(model16.rnnt_cfg.vocab_size, dev)
+    model16.hotword_tables = tables
+    log(f"models: Zipformer-30M random (seed 0), float32 and bfloat16 (hotword table "
+        f"S {tables.next_state.shape[0]}) on {dev} in {time.perf_counter() - t0:.1f} s")
+    kernels = [check_fbank(dev), check_attention(dev, model), check_beam(dev, model),
+               check_encoder_layer(dev, model16), check_beam_hotwords(dev, model16, tables)]
     log("PHASE kernel parity ok")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)
-    log("PHASE slice ok")
+        log("PHASE slice ok")
+        launches_bf16 = phase_slice_bf16(dev, model16, model, tmp)
+    log("PHASE slice bf16 ok")
     for k in kernels:
         k["route"] = "cuda"
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"]) or launches_bf16[k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))

@@ -1,7 +1,7 @@
 # sherpa_vietnamese_asr_tpu_torch — the PyTorch/CUDA port of
 # sherpa_vietnamese_asr_tpu (the JAX package, which stays the reference).
 #
-# It imports torch and never jax. On CUDA tensors its three kernels
+# It imports torch and never jax. On CUDA tensors its hand-written kernels
 # (csrc/*.cu) are built at first use; on CPU tensors every op runs its plain
 # PyTorch twin.
 

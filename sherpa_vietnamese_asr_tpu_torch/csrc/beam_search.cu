@@ -3,8 +3,8 @@
 // Replaces: sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py _beam_kernel
 // (launcher beam_search_batch_pallas), the TPU kernel that runs the frame
 // axis as a sequential grid with the beam state resident in VMEM, and the
-// backward walk over its per-frame records that follows it. The hotword
-// branch of that kernel is not ported yet (the wrapper raises).
+// backward walk over its per-frame records that follows it, including the
+// kernel's hotword branch (`with_hw`).
 //
 // Semantics (the plain twin is ops/beam_search.py): per frame, the stateless
 // decoder on each beam's 2-token context, the joiner, log-softmax, an exact
@@ -13,6 +13,19 @@
 // with identical emitted sequences, entropy metrics of each parent's logits
 // (margin 0 on an exact probability tie); frames past a chunk's length are
 // no-ops; length-normalised selection at the end.
+//
+// Hotwords (S > 0): each beam carries an Aho-Corasick state. After top-k a
+// candidate whose token is neither blank nor unk gains delta[parent_state,
+// tok] and moves to next_state[parent_state, tok]; blank and unk keep the
+// parent's state. The merge log-adds the boosted scores and a merged beam
+// keeps the canonical (first) beam's state; the recorded token log-prob
+// stays the unboosted one. Before the final arg-max every beam gives back
+// node_score[state] (the finalize term), and total_logp is reported after
+// it. The dense [S, V] tables are read by index from global memory: one
+// 4-byte read of each table per beam per frame, which stays in L2, so the
+// branch costs nothing next to the joiner's vocab product. The TPU kernel
+// had to fetch table columns through one-hot matmuls and cap S at what
+// fits in VMEM; here any S with S * V < 2^31 works.
 //
 // What bounds it on the H100: latency. Frames are sequential and only one
 // block per chunk is busy (8 of 132 SMs at B = 8). Each frame re-reads the
@@ -69,11 +82,13 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
             const float* __restrict__ we, const float* __restrict__ be,
             const float* __restrict__ wdp, const float* __restrict__ bdp,
             const float* __restrict__ wo, const float* __restrict__ bo,
+            const int* __restrict__ hw_next, const float* __restrict__ hw_delta,
+            const float* __restrict__ hw_node,
             int* rec_par, int* rec_tok, float* rec_lp, float* rec_met,
             int* out_tokens, int* out_frames, float* out_tok_logp,
             float* out_entropy, int* out_n, float* out_logp, int T, int E,
-            int D, int ipg, int K, int J, int V, int beam, int blank,
-            float tsallis_max, float max_entropy) {
+            int D, int ipg, int K, int J, int V, int beam, int blank, int unk,
+            int S, float tsallis_max, float max_entropy) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_lp = reinterpret_cast<float*>(smem);     // [kMaxBeam][V] logits -> log-probs
   float* s_h = s_lp + kMaxBeam * V;                 // [J][kMaxBeam] joiner hidden
@@ -87,6 +102,8 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
   __shared__ int s_hi[kMaxBeam], s_tk[kMaxBeam], s_newn[kMaxBeam];
   __shared__ int s_newctx[kMaxBeam][kMaxCtx];
   __shared__ float s_score[kMaxBeam];
+  __shared__ float s_boost[kMaxBeam];             // s_score + hotword delta
+  __shared__ int s_hw[kMaxBeam], s_newhw[kMaxBeam];  // automaton states
   __shared__ float s_met[kMaxBeam][4];
   __shared__ bool s_eq[kMaxBeam][kMaxBeam];
   __shared__ float s_red_s[kWarps];
@@ -101,6 +118,7 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
   if (tid < kMaxBeam) {
     s_logp[tid] = tid == 0 ? 0.f : kNegInf;
     s_n[tid] = 0;
+    s_hw[tid] = 0;  // the automaton's root
     for (int k = 0; k < kMaxCtx; ++k) s_ctx[tid][k] = 0;  // [-1, 0] + ys, >= 0
   }
   if (tid == 0) s_cur = 0;
@@ -277,6 +295,16 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
       for (int k = 0; k < K; ++k)
         s_newctx[j][k] = is_blank ? s_ctx[hi][k]
                                   : (k + 1 < K ? s_ctx[hi][k + 1] : tk);
+      const int p_hw = s_hw[hi];
+      float boost = 0.f;
+      int nhw = p_hw;
+      if (S > 0 && !is_blank && tk != unk) {
+        const size_t cell = (size_t)p_hw * V + tk;
+        boost = hw_delta[cell];
+        nhw = hw_next[cell];
+      }
+      s_boost[j] = s_score[j] + boost;
+      s_newhw[j] = nhw;
       const size_t r = ((size_t)b * T + t) * beam + j;
       rec_par[r] = hi;
       rec_tok[r] = tk;
@@ -309,11 +337,12 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
       }
       for (int i = 0; i < beam; ++i) {
         float m = kNegInf;
-        for (int j = 0; j < beam; ++j) m = fmaxf(m, canon[j] == i ? s_score[j] : kNegInf);
+        for (int j = 0; j < beam; ++j) m = fmaxf(m, canon[j] == i ? s_boost[j] : kNegInf);
         float se = 0.f;
-        for (int j = 0; j < beam; ++j) se += expf((canon[j] == i ? s_score[j] : kNegInf) - m);
+        for (int j = 0; j < beam; ++j) se += expf((canon[j] == i ? s_boost[j] : kNegInf) - m);
         s_logp[i] = canon[i] == i ? m + logf(se) : kNegInf;
         s_n[i] = s_newn[i];
+        s_hw[i] = s_newhw[i];
         for (int k = 0; k < K; ++k) s_ctx[i][k] = s_newctx[i][k];
       }
       s_cur ^= 1;
@@ -321,8 +350,10 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
     __syncthreads();
   }
 
-  // ---- length-normalised selection ----
+  // ---- finalize (hotwords) and length-normalised selection ----
   if (tid == 0) {
+    if (S > 0)
+      for (int j = 0; j < beam; ++j) s_logp[j] -= hw_node[s_hw[j]];
     int best = 0;
     float best_v = -INFINITY;
     for (int j = 0; j < beam; ++j) {
@@ -367,13 +398,15 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
 extern "C" int svt_beam_search(
     const float* enc, const int* lens, const float* emb, const float* conv_w,
     const float* we, const float* be, const float* wdp, const float* bdp,
-    const float* wo, const float* bo, int* rec_par, int* rec_tok, float* rec_lp,
+    const float* wo, const float* bo, const int* hw_next, const float* hw_delta,
+    const float* hw_node, int* rec_par, int* rec_tok, float* rec_lp,
     float* rec_met, int* out_tokens, int* out_frames, float* out_tok_logp,
     float* out_entropy, int* out_n, float* out_logp, int B, int T, int E, int D,
-    int ipg, int K, int J, int V, int beam, int blank, float tsallis_max,
-    float max_entropy, void* stream) {
+    int ipg, int K, int J, int V, int beam, int blank, int unk, int S,
+    float tsallis_max, float max_entropy, void* stream) {
   if (beam < 1 || beam > kMaxBeam || K < 1 || K > kMaxCtx || V < 2 ||
-      V > 65536 || D % ipg != 0)
+      V > 65536 || D % ipg != 0 || S < 0 || (long long)S * V >= (1LL << 31) ||
+      (S > 0 && (!hw_next || !hw_delta || !hw_node)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kMaxBeam * V + kMaxBeam * J + kMaxBeam * D + E) * 4 +
                       (size_t)2 * kMaxBeam * T * 2;
@@ -381,8 +414,9 @@ extern "C" int svt_beam_search(
       beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   beam_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo, rec_par, rec_tok, rec_lp,
-      rec_met, out_tokens, out_frames, out_tok_logp, out_entropy, out_n, out_logp,
-      T, E, D, ipg, K, J, V, beam, blank, tsallis_max, max_entropy);
+      enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo, hw_next, hw_delta, hw_node,
+      rec_par, rec_tok, rec_lp, rec_met, out_tokens, out_frames, out_tok_logp,
+      out_entropy, out_n, out_logp, T, E, D, ipg, K, J, V, beam, blank, unk, S,
+      tsallis_max, max_entropy);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,8 @@ class AsrModel:
     def to(self, device) -> "AsrModel":
         for m in (self.encoder, self.decoder, self.joiner):
             m.to(device).eval()
+        if self.hotword_tables is not None:
+            self.hotword_tables = self.hotword_tables.to(device)
         if self.device.type == "cuda":
             use_full_fp32()
         return self
@@ -106,7 +108,9 @@ def random_asr_model(name: str = MODEL_30M, vocab_size: int = 2000,
                      generator: torch.Generator | None = None) -> AsrModel:
     """Random-weight model at the true architecture sizes (same shapes as the
     JAX package's random_asr_model; values come from `generator`, or from a
-    CPU generator seeded with `seed`). Pass zip_cfg=TINY_ZIPFORMER for fast
+    CPU generator seeded with `seed`). compute_dtype is "float32" or
+    "bfloat16"; master weights stay float32 either way, so one seed gives
+    the same weights in both tiers. Pass zip_cfg=TINY_ZIPFORMER for fast
     CPU tests."""
     if zip_cfg is not None:
         zcfg = zip_cfg

@@ -59,15 +59,16 @@ def _attention_weights_cuda(q, k, pq, pos_proj_weight, pos_emb, lens):
         raise ValueError(f"attention kernel is built for (qd, pd) in "
                          f"{_KERNEL_HEAD_DIMS}, got {(qd, pd)}")
     for name, x in (("q", q), ("k", k), ("pq", pq)):
-        if x.dtype != torch.float32 or x.device != q.device:
-            raise ValueError(f"{name} must be float32 on {q.device}")
+        if x.dtype not in (torch.float32, torch.bfloat16) or x.device != q.device:
+            raise ValueError(f"{name} must be float32 or bfloat16 on {q.device}")
     if k.shape != q.shape or pq.shape[:3] != q.shape[:3] \
             or pos_emb.shape[0] != 2 * t - 1 or lens.shape != (b,):
         raise ValueError("attention kernel: inconsistent shapes")
     # [B, T, H, d] -> [B*H, T, d]; pos -> [H, 2T-1, pd], all contiguous f32
-    qh = q.permute(0, 2, 1, 3).contiguous()
-    kh = k.permute(0, 2, 1, 3).contiguous()
-    ph = pq.permute(0, 2, 1, 3).contiguous()
+    # (bf16 inputs of the bfloat16 tier widen exactly)
+    qh = q.permute(0, 2, 1, 3).to(torch.float32).contiguous()
+    kh = k.permute(0, 2, 1, 3).to(torch.float32).contiguous()
+    ph = pq.permute(0, 2, 1, 3).to(torch.float32).contiguous()
     pos = _pos_lin(pos_proj_weight.to(torch.float32),
                    pos_emb.to(torch.float32), h, torch.float32)
     pos = pos.permute(1, 0, 2).contiguous()
@@ -90,8 +91,9 @@ def attention_weights(q, k, pq, pos_proj_weight, pos_emb, lens,
     """[B, H, S, T] keys-major attention weights.
 
     CPU tensors: the plain twin, float32 (pos scores rounded to pos_dtype).
-    CUDA tensors: the kernel, bf16 (position scores always in float32, as
-    in the TPU kernel). Consumers upcast to their compute dtype.
+    CUDA tensors (float32, or bfloat16 widened exactly): the kernel, bf16
+    out (position scores always in float32, as in the TPU kernel).
+    Consumers cast to their compute dtype.
     """
     if q.device.type == "cpu":
         return attention_weights_plain(q, k, pq, pos_proj_weight, pos_emb,

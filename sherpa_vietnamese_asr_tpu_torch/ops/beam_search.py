@@ -40,6 +40,10 @@ class HotwordTables:
     delta: torch.Tensor       # [S, V] float32 score delta of forward_one_step
     node_score: torch.Tensor  # [S] float32 (finalize(s) = -node_score[s])
 
+    def to(self, device) -> "HotwordTables":
+        return HotwordTables(self.next_state.to(device), self.delta.to(device),
+                             self.node_score.to(device))
+
 
 @dataclasses.dataclass
 class BeamResult:

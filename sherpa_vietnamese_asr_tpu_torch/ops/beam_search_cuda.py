@@ -1,10 +1,10 @@
 # Wrapper of the CUDA beam-search kernel (csrc/beam_search.cu).
 #
-# Port of sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py without its
-# hotword branch. beam_search_batch_cuda is the kernel's wrapper: for CPU
-# tensors it runs the plain twin ops/beam_search.beam_search_batch (hotwords
-# included); for CUDA tensors it launches the kernel, which runs every frame
-# and the backward walk over its records in one launch, or raises.
+# Port of sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py, hotword branch
+# included. beam_search_batch_cuda is the kernel's wrapper: for CPU tensors it
+# runs the plain twin ops/beam_search.beam_search_batch; for CUDA tensors it
+# launches the kernel, which runs every frame and the backward walk over its
+# records in one launch, or raises.
 
 from __future__ import annotations
 
@@ -19,8 +19,10 @@ from sherpa_vietnamese_asr_tpu_torch.ops.beam_search import (
     metric_constants,
 )
 
-# Kernel launches of beam_search_batch_cuda() on CUDA tensors.
+# Kernel launches of beam_search_batch_cuda() on CUDA tensors, without and
+# with hotword tables.
 launches = 0
+hotword_launches = 0
 
 MAX_BEAM = 8
 _SMEM_LIMIT = 227 * 1024
@@ -30,8 +32,29 @@ def _kernel_smem_bytes(t, e, d, j, v) -> int:
     return (MAX_BEAM * (v + j + d) + e) * 4 + 2 * MAX_BEAM * t * 2
 
 
-def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size):
-    global launches
+def _hotword_args(hw, dev, v):
+    """(next_state, delta, node_score) pointers and S; (0, 0, 0), 0 without."""
+    if hw is None:
+        return [0, 0, 0], 0
+    s = hw.next_state.shape[0]
+    if s < 1 or hw.next_state.shape != (s, v) or hw.delta.shape != (s, v) \
+            or hw.node_score.shape != (s,):
+        raise ValueError(f"hotword tables must be [S, {v}], [S, {v}], [S]")
+    if s * v >= 2 ** 31:
+        raise ValueError(f"hotword tables too large for int32 indexing: "
+                         f"S={s} x V={v} >= 2^31")
+    for x, dt in ((hw.next_state, torch.int32), (hw.delta, torch.float32),
+                  (hw.node_score, torch.float32)):
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"hotword tables must be contiguous (int32, "
+                             f"float32, float32) on {dev}; AsrModel.to() "
+                             f"moves them")
+    return [hw.next_state.data_ptr(), hw.delta.data_ptr(),
+            hw.node_score.data_ptr()], s
+
+
+def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw):
+    global launches, hotword_launches
     dev = enc_out.device
     b, t, e = enc_out.shape
     v, d, j = cfg.vocab_size, cfg.decoder_dim, cfg.joiner_dim
@@ -45,6 +68,7 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size):
         raise ValueError(f"enc_out must be float32 [B, T, {cfg.encoder_out_dim}]")
     if enc_lens.shape != (b,):
         raise ValueError("enc_lens must be [B]")
+    hw_ptrs, s_hw = _hotword_args(hw, dev, v)
     smem = _kernel_smem_bytes(t, e, d, j, v)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"beam kernel state ({smem} B) exceeds shared memory "
@@ -82,11 +106,15 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size):
             res.num_tokens, res.total_logp]
     lib = cuda_lib.library()
     status = lib.svt_beam_search(
-        *[x.data_ptr() for x in args + recs + outs],
-        b, t, e, d, ipg, k, j, v, beam_size, cfg.blank_id,
+        *[x.data_ptr() for x in args], *hw_ptrs,
+        *[x.data_ptr() for x in recs + outs],
+        b, t, e, d, ipg, k, j, v, beam_size, cfg.blank_id, cfg.unk_id, s_hw,
         float(tsallis_max), float(max_entropy), cuda_lib.stream(dev))
     cuda_lib.check(status, "svt_beam_search")
-    launches += 1
+    if hw is None:
+        launches += 1
+    else:
+        hotword_launches += 1
     return res
 
 
@@ -98,16 +126,14 @@ def beam_search_batch_cuda(enc_out, enc_lens, decoder: Decoder,
     ops/beam_search.beam_search_batch.
 
     enc_out: [N, T, E] float32; enc_lens: [N]. CPU tensors run the plain
-    twin; CUDA tensors launch the kernel (beam_size 1..8, no hotwords).
+    twin; CUDA tensors launch the kernel (beam_size 1..8; hotword tables on
+    the same device, any S with S * V < 2^31).
     """
     if enc_out.device.type == "cpu":
         return beam_search_batch(enc_out, enc_lens, decoder, joiner, cfg,
                                  beam_size=beam_size, hw_tables=hw_tables)
     if enc_out.device.type != "cuda":
         raise ValueError(f"beam search: unsupported device {enc_out.device}")
-    if hw_tables is not None:
-        raise NotImplementedError(
-            "hotword boosting is not ported to the CUDA beam kernel yet")
     with torch.no_grad():
         return _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg,
-                                 beam_size)
+                                 beam_size, hw_tables)

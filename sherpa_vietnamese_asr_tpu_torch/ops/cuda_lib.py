@@ -1,7 +1,8 @@
 # Build and load the package's hand-written CUDA kernels (csrc/*.cu).
 #
 # All kernels go into ONE shared library with a plain C interface, compiled
-# by nvcc for sm_90a (Hopper) and loaded with ctypes. The library is built at
+# by nvcc for sm_90a (Hopper; one nvcc per source, run in parallel, then one
+# link) and loaded with ctypes. The library is built at
 # first use into build/kernels/ at the repository root and keyed by a hash of
 # the sources and flags, so an edited source rebuilds and an unchanged one
 # loads at once. Each C entry point takes raw data pointers plus the CUDA
@@ -34,11 +35,16 @@ SIGNATURES = {
     # q, k, pq, pos, lens, out | B, H, T, qd, pd | stream
     "svt_attention_weights": [_P] * 6 + [_I] * 5 + [_P],
     # enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo,
+    # hw_next, hw_delta, hw_node (null when S = 0),
     # rec_par, rec_tok, rec_lp, rec_met,
     # tokens, frames, tok_logp, entropy, num_tokens, total_logp
-    # | B, T, E, D, ipg, K, J, V, beam, blank | tsallis_max, max_entropy
-    # | stream
-    "svt_beam_search": [_P] * 20 + [_I] * 10 + [_F, _F, _P],
+    # | B, T, E, D, ipg, K, J, V, beam, blank, unk, S | tsallis_max,
+    # max_entropy | stream
+    "svt_beam_search": [_P] * 23 + [_I] * 12 + [_F, _F, _P],
+    # x, lens, poslin, weights (host array of 42 pointers), out,
+    # ws_proj, ws_w, ws_a, ws_b, ws_c, ws_x
+    # | B, T_pad, D, H, qd, pd, vd, hna, ff1, ff2, ff3, K, pos_rows | stream
+    "svt_encoder_layer_bf16": [_P] * 11 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()
@@ -83,16 +89,35 @@ def build(ptxas_info: bool = False) -> tuple[Path, float, str]:
         return out, 0.0, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
-           "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    # One nvcc per source, all started together, then one link.
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    ptxas = ["-Xptxas", "-v"] if ptxas_info else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *compile_flags, *ptxas, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    logs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in jobs]
+    failed = [f"{obj.name}:\n{log}" for obj, log, rc in logs if rc != 0]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                               *[str(obj) for obj, _, _ in logs]],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link:\n{link.stdout}{link.stderr}")
+    for obj, _, _ in logs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    return out, seconds, proc.stdout + proc.stderr
+    return out, seconds, "".join(log for _, log, _ in logs)
 
 
 def library() -> ctypes.CDLL:

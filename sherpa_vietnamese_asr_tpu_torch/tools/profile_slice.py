@@ -3,10 +3,13 @@
 Run from the repository root:
 
     python3 -m sherpa_vietnamese_asr_tpu_torch.tools.profile_slice \
-        [--seconds 95] [--long-seconds 600] [--trace trace.json]
+        [--dtype float32|bfloat16] [--seconds 95] [--long-seconds 600] \
+        [--trace trace.json]
 
-It builds the random-weight Zipformer-30M model (float32, vocab 2000,
-beam 8), runs TranscriberPipeline(path, model, {"bypass_vad": True}) on a
+It builds the random-weight Zipformer-30M model (vocab 2000, beam 8) in the
+given compute dtype; bfloat16 also carries the synthetic hotword table of
+chip_smoke.py (the bf16 slice). It runs
+TranscriberPipeline(path, model, {"bypass_vad": True}) on a
 synthetic AM-tone WAV twice to warm up, then once under torch.profiler, and
 prints:
   - the request's wall time and the pipeline's own `timing` split;
@@ -44,6 +47,30 @@ def am_tone(seconds, seed):
     return x.astype(np.float32)
 
 
+def synthetic_hotword_tables(vocab, device, n_phrases=30, seed=5):
+    """A hotword table from 30 phrases over the synthetic vocab: 8 one-piece
+    words (on random weights only a completed phrase keeps its credit, so
+    these make the boost change the decode) and 22 longer ones, many sharing
+    a prefix with an earlier one (S >= 128 states)."""
+    from sherpa_vietnamese_asr_tpu_torch.ops.hotword import build_hotword_tables
+
+    rng = np.random.default_rng(seed)
+    seqs = [[int(tok)] for tok in rng.choice(np.arange(3, vocab), 8, replace=False)]
+    longer = []
+    for _ in range(n_phrases - len(seqs)):
+        if longer and rng.random() < 0.4:
+            base = longer[int(rng.integers(len(longer)))]
+            longer.append(base[: int(rng.integers(1, len(base)))]
+                          + rng.integers(3, vocab, int(rng.integers(2, 6))).tolist())
+        else:
+            longer.append(rng.integers(3, vocab, int(rng.integers(5, 10))).tolist())
+    seqs += longer
+    scores = rng.uniform(2.0, 4.0, len(seqs)).round(2).tolist()
+    tables, _ = build_hotword_tables(seqs, scores, vocab)
+    assert tables.next_state.shape[0] >= 128, tables.next_state.shape
+    return tables.to(device)
+
+
 def _busy_ms(intervals):
     """Length of the union of [start, end) microsecond intervals, in ms."""
     total, cur_s, cur_e = 0.0, None, None
@@ -69,6 +96,7 @@ def _device_events(prof):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--seconds", type=float, default=95.0)
     ap.add_argument("--long-seconds", type=float, default=600.0)
     ap.add_argument("--top", type=int, default=12)
@@ -86,7 +114,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA card")
     dev = torch.device("cuda", 0)
-    model = random_asr_model(vocab_size=2000, beam_size=8, device=dev)
+    model = random_asr_model(vocab_size=2000, beam_size=8, compute_dtype=args.dtype,
+                             device=dev)
+    if args.dtype == "bfloat16":
+        model.hotword_tables = synthetic_hotword_tables(model.rnnt_cfg.vocab_size, dev)
     config = {"bypass_vad": True}
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -134,7 +165,7 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}")
     print(json.dumps({
-        "card": smi, "request_s": args.seconds, "wall_ms": wall_ms,
+        "card": smi, "dtype": args.dtype, "request_s": args.seconds, "wall_ms": wall_ms,
         "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "timing": res["timing"],
         "top_kernels_ms": {name: ms for name, ms in top},

@@ -161,8 +161,8 @@ def test_margin_zero_on_exact_tie():
 
 
 def test_hotwords_match_jax_scan():
-    """The plain twin carries the hotword automaton (the CUDA kernel does
-    not yet, and raises)."""
+    """The plain twin carries the hotword automaton (the CUDA kernel's
+    hotword branch is held against this twin on the card by chip_smoke.py)."""
     import jax.numpy as jnp
 
     from sherpa_vietnamese_asr_tpu.ops.beam_search import beam_search_batch as jbs
