@@ -30,8 +30,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point; pointers and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints.
 SIGNATURES = {
-    # frames, cos, sin, mel, out | n_frames, n_fft, n_spec, n_mel | floor | stream
-    "svt_fbank_logmel": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # frames, twiddle, mel_first, mel_offsets, mel_weights, out
+    # | n_frames, n_fft, n_mel, n_weights | floor | stream
+    "svt_fbank_logmel": [_P] * 6 + [_I] * 4 + [_F, _P],
     # q, k, pq, pos, lens, out | B, H, T, qd, pd | stream
     "svt_attention_weights": [_P] * 6 + [_I] * 5 + [_P],
     # enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo,

@@ -1,12 +1,14 @@
 # Kaldi log-mel fbank in PyTorch: framing as plain tensor ops, then one
 # hand-written CUDA kernel (csrc/fbank_logmel.cu) for
-# DFT -> power spectrum -> mel projection -> log.
+# real FFT -> power spectrum -> mel -> log.
 #
-# Port of sherpa_vietnamese_asr_tpu/ops/fbank.py. The 512-point real DFT is
-# two products against constant cos/sin bases over the 257 real bins, the
-# same formulation as the JAX package. logmel() is the kernel's wrapper:
-# for a CPU tensor it runs the plain twin _logmel_plain, for a CUDA tensor it
-# launches the kernel (or raises).
+# Port of sherpa_vietnamese_asr_tpu/ops/fbank.py. The plain twin keeps the
+# JAX package's formulation, the 512-point real DFT as two products against
+# constant cos/sin bases over the 257 real bins. The kernel computes the same
+# spectrum with a real FFT in shared memory instead; its constants (the
+# twiddle table and the mel bank in compact form) are made here on the host.
+# logmel() is the kernel's wrapper: for a CPU tensor it runs the plain twin
+# _logmel_plain, for a CUDA tensor it launches the kernel (or raises).
 #
 # Numeric oracle: sherpa_vietnamese_asr_tpu_torch.utils.fbank_ref.compute_fbank.
 
@@ -33,9 +35,12 @@ __all__ = [
     "CAMPP_FBANK",
     "RESNET_EMB_FBANK",
     "FbankConfig",
+    "check_kernel_args",
+    "compact_mel",
     "compute_fbank",
     "logmel",
     "num_frames",
+    "twiddle_table",
 ]
 
 # Kernel launches of logmel() on CUDA tensors (never counts the plain twin).
@@ -59,6 +64,40 @@ def _constants_np(cfg: FbankConfig):
 @functools.lru_cache(maxsize=16)
 def _constants(cfg: FbankConfig, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in _constants_np(cfg))
+
+
+def twiddle_table(n_fft: int) -> np.ndarray:
+    """[n_fft, 2] float32: (cos, -sin) of 2*pi*t/n_fft for t < n_fft, that is
+    exp(-2*pi*i*t/n_fft), computed in float64 and rounded once. The kernel's
+    FFT stages and its real-split step both index it."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def compact_mel(cfg: FbankConfig) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Kaldi's mel bank as each filter's own bins: (first bin [num_bins] int32,
+    offsets [num_bins + 1] int32, weights float32), filter b's weights being
+    weights[offsets[b]:offsets[b + 1]] for the bins from first[b] on. The
+    triangles are contiguous and never reach the Nyquist bin."""
+    dense = kaldi_mel_banks(cfg)  # [num_bins, n_fft // 2 + 1]
+    first = np.zeros(cfg.num_bins, np.int32)
+    offsets = np.zeros(cfg.num_bins + 1, np.int32)
+    rows = []
+    for b, row in enumerate(dense):
+        nz = np.flatnonzero(row)
+        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        first[b] = lo
+        rows.append(row[lo:hi])
+        offsets[b + 1] = offsets[b] + hi - lo
+    weights = np.concatenate(rows).astype(np.float32)
+    assert int((first + np.diff(offsets)).max()) <= cfg.n_fft // 2
+    return first, offsets, weights
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_constants(cfg: FbankConfig, device: torch.device):
+    arrays = (twiddle_table(cfg.n_fft), *compact_mel(cfg))
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
 def _frame_signal(audio: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
@@ -123,15 +162,25 @@ def _logmel_plain(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
     return torch.log(torch.clamp_min(power @ mel, cfg.log_floor))
 
 
-def _logmel_cuda(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
-    global launches
+def check_kernel_args(frames: torch.Tensor, cfg: FbankConfig) -> None:
+    """Raise ValueError unless the kernel takes these frames and config:
+    contiguous float32 [F, n_fft] with n_fft a power of two in [64, 1024]."""
+    n_fft = cfg.n_fft
+    if not (64 <= n_fft <= 1024 and n_fft & (n_fft - 1) == 0):
+        raise ValueError("logmel kernel takes n_fft a power of two from 64 to "
+                         f"1024, got {n_fft}")
     if frames.dtype != torch.float32 or frames.dim() != 2 \
-            or frames.shape[1] != cfg.n_fft or not frames.is_contiguous():
+            or frames.shape[1] != n_fft or not frames.is_contiguous():
         raise ValueError("logmel kernel takes contiguous float32 [F, n_fft] "
                          f"frames, got {frames.dtype} {tuple(frames.shape)}")
-    if cfg.n_fft > 512 or cfg.n_fft // 2 + 1 > 384:
-        raise ValueError(f"logmel kernel supports n_fft <= 512, got {cfg.n_fft}")
-    _, wc, ws, mel = _constants(cfg, frames.device)
+
+
+def _logmel_cuda(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
+    global launches
+    check_kernel_args(frames, cfg)
+    if frames.data_ptr() % 16:  # the kernel loads frames in 16-byte pieces
+        frames = frames.clone()
+    twiddle, first, offsets, weights = _kernel_constants(cfg, frames.device)
     n = frames.shape[0]
     out = torch.empty((n, cfg.num_bins), dtype=torch.float32,
                       device=frames.device)
@@ -139,9 +188,10 @@ def _logmel_cuda(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
         return out
     lib = cuda_lib.library()
     status = lib.svt_fbank_logmel(
-        frames.data_ptr(), wc.data_ptr(), ws.data_ptr(), mel.data_ptr(),
-        out.data_ptr(), n, cfg.n_fft, cfg.n_fft // 2 + 1, cfg.num_bins,
-        float(cfg.log_floor), cuda_lib.stream(frames.device))
+        frames.data_ptr(), twiddle.data_ptr(), first.data_ptr(),
+        offsets.data_ptr(), weights.data_ptr(), out.data_ptr(), n, cfg.n_fft,
+        cfg.num_bins, weights.numel(), float(cfg.log_floor),
+        cuda_lib.stream(frames.device))
     cuda_lib.check(status, "svt_fbank_logmel")
     launches += 1
     return out

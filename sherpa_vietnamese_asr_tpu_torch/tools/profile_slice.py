@@ -94,6 +94,26 @@ def _device_events(prof):
             and not e.name.startswith("Activity Buffer")]
 
 
+def profile_calls(fn, reps=20):
+    """Device time of one call of fn() on the card, from torch.profiler over
+    `reps` calls after one warm-up: (busy ms, {device kernel name: ms})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    per_name = collections.defaultdict(float)
+    for e in events:
+        per_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) / reps
+    return busy, dict(per_name)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
