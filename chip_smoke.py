@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      split; the whole-layer kernel at all six Zipformer-30M stack shapes
      with perturbed biases, norm and bypasses, where six planted faults of
      the twin must fail the same gate; the beam kernel with and without a
-     hotword table);
+     hotword table, and at vocab 1999 with ties planted across its vocab
+     slices; with --parent DIR, the beam kernel of the checkout in DIR timed
+     against this one in turns);
   4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
      three WAV files with a random-weight Zipformer-30M model (vocab 2000,
      beam 8, float32), checking the result contract and that every kernel of
@@ -25,12 +27,17 @@ Phases (any failure raises and the script exits non-zero):
      (same weights) carrying a hotword table, on two files; the whole-layer
      kernel and the hotword beam must run, and the bf16 encoder output must
      agree with the float32 encoder's on one batch (cosine >= 0.99).
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels, each with its
+bound (the least time the card could take for the same work, from this
+run's shapes and the card's published peaks); the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py [--parent DIR]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -81,6 +88,17 @@ FBANK_GATE_MEAN, FBANK_GATE_MAX = 1e-5, 2e-2
 # ratio 0.93 to 0.94.
 FBANK_ORACLE_MARGIN = 1.1
 COSINE_GATE = 0.99  # bf16 vs float32 encoder output, per chunk
+BEAM_TIE_V = 1999  # vocab slices of 250 columns, the last one 249
+# (token, bias) pairs of the boundary-tie joiner: zero weight rows, so each
+# pair's logits tie exactly in every summation order; 249 | 250 is the first
+# slice boundary, 1749 | 1750 the last. With the random weights about a
+# third of the emitted tokens are tied ones, most with margin 0.
+BEAM_TIES = ((249, 2.0), (250, 2.0), (1749, 1.5), (1750, 1.5))
+# Published peaks of one H100 SXM (dense, at a 700 W limit): the floor of
+# each kernel's time is max(bytes / PEAK_BYTES, operations / peak of their type).
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12  # outside the tensor cores
+PEAK_BF16 = 989e12  # tensor cores
 
 
 def log(msg):
@@ -104,6 +122,19 @@ def time_ms(fn, reps=7, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(nbytes, flops, peak):
+    """{"bound_ms", "bound_by"}: the larger of the bytes' time at the memory
+    rate and the operations' time at `peak`."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 def speechlike(rng, n):
@@ -277,7 +308,16 @@ def check_fbank(dev):
             f"{batch_kernel:.4f} ms and framing {batch_busy - batch_kernel:.4f} ms; "
             f"device kernels " + ", ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(
                 batch_dev.items(), key=lambda kv: -kv[1])))
-        summary.update(ms=ms, plain_ms=plain_ms)
+        # Each frame read once, each log-mel written once, the tables once;
+        # operations of a radix-2 FFT of the n_fft/2 complex points
+        # (5 h log2 h), the real split and power (17 a bin), the compact mel
+        # weights (2 each) and a log per output.
+        tables = fbank._kernel_constants(cfg, dev)
+        h = cfg.n_fft // 2
+        flops = frames.shape[0] * (5 * h * np.log2(h) + 17 * h + 2 * tables[3].numel()
+                                   + cfg.num_bins)
+        summary.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bound(
+            nbytes(frames, *tables) + frames.shape[0] * cfg.num_bins * 4, flops, PEAK_FP32))
     for n_fft in FBANK_OTHER_N_FFT:  # the kernel's other instantiations, on two chunks
         cfg = dataclasses.replace(fbank.ASR_FBANK, n_fft=n_fft, frame_length=min(400, n_fft))
         fr = fbank._frame_signal(audio_dev[:2], cfg).reshape(-1, n_fft).contiguous()
@@ -334,16 +374,24 @@ def check_attention(dev, model):
         del got, ref
         ms = time_ms(lambda: attention.attention_weights(*args))
         plain_ms = time_ms(lambda: attention.attention_weights_plain(*args))
+        # Inputs read once, the [B, H, T, T] bf16 weights written once; the
+        # content and position products (2 (qd + pd) a weight, fp32 inputs),
+        # 4 more a weight for the softmax, and the position projection.
+        flops = (SLICE_BATCH * h * t * t * (2 * (qd + pd) + 4)
+                 + 2 * (2 * t - 1) * wpos.shape[0] * wpos.shape[1])
+        bnd = bound(nbytes(*args) + SLICE_BATCH * h * t * t * 2, flops, PEAK_FP32)
         log(f"attention: stack {stack} B {SLICE_BATCH} T {t} H {h} lens {lens_list} "
             f"max_abs {err:.3e} key_sum_err {sum_err:.3e} bf16_bound_ratio {rel:.4f} "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
         assert err < 2e-2 and sum_err < 2e-2, "attention parity"
         assert rel <= 1.0, "attention parity: beyond bf16 rounding of the twin"
         if out is None:  # the stack-0 shape is the one the summary reports
             out = {"name": "attention_weights",
                    "source": "sherpa_vietnamese_asr_tpu_torch/csrc/attention_weights.cu",
                    "replaces": "sherpa_vietnamese_asr_tpu/ops/attention.py:35",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, **bnd}
     return out
 
 
@@ -376,7 +424,82 @@ def _beam_compare(label, got, ref):
     return lp_err
 
 
-def check_beam(dev, model):
+def beam_bound(enc, lens, decoder, joiner, cfg, beam, tables=None):
+    """Bound of one beam-kernel launch: inputs, weights and tables read once,
+    records and outputs written once; per valid chunk-frame (sum of min(len,
+    T)) the decoder conv, the joiner's products (2 a multiply-add) and 10
+    operations a logit for the softmax, metrics and top-k, at the fp32 rate."""
+    b, t, e = enc.shape
+    v, d, j = cfg.vocab_size, cfg.decoder_dim, cfg.joiner_dim
+    conv = decoder.conv_weight
+    frames = int(lens.clamp(0, t).sum())
+    per_frame = (2 * beam * d * conv.shape[1] * conv.shape[2] + 2 * e * j
+                 + 2 * beam * d * j + 2 * beam * j * v + 10 * beam * v)
+    read = nbytes(enc, lens, decoder.embedding, conv, *joiner.kernel_layout())
+    if tables is not None:
+        read += nbytes(tables.next_state, tables.delta, tables.node_score)
+    written = b * t * beam * 28 + b * t * 28 + b * 8  # records; tokens .. entropy
+    return bound(read + written, frames * per_frame, PEAK_FP32)
+
+
+def parent_beam_entry(parent):
+    """svt_beam_search of the checkout at `parent`, built alone from its
+    csrc/beam_search.cu into build/parent_beam/ (the C entry point and its
+    arguments are the same)."""
+    from pathlib import Path
+
+    from sherpa_vietnamese_asr_tpu_torch.tools.beam_stages import build_entries
+
+    src = Path(parent) / "sherpa_vietnamese_asr_tpu_torch" / "csrc" / "beam_search.cu"
+    t0 = time.perf_counter()
+    fn = build_entries({"parent": (src, [])}, Path(REPO) / "build" / "parent_beam")["parent"]
+    log(f"parent beam kernel: built {src} in {time.perf_counter() - t0:.1f} s")
+    return fn
+
+
+def beam_ab(label, args, tables, parent):
+    """The parent checkout's beam kernel against this one on the same inputs,
+    timed in turns (parent, this, this, parent); token positions that differ."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search_cuda
+
+    def run(entry):
+        return lambda: beam_search_cuda._beam_search_cuda(*args, tables, entry=entry)
+
+    diff = int((run(parent)().tokens != run(None)().tokens).sum())
+    torch.cuda.synchronize()
+    turns = [time_ms(run(entry), reps=5, warmup=1) for entry in (parent, None, None, parent)]
+    log(f"beam A/B {label}: parent {turns[0]:.3f} / {turns[3]:.3f} ms, this "
+        f"{turns[1]:.3f} / {turns[2]:.3f} ms (parent, this, this, parent); "
+        f"{diff} token positions differ")
+    return turns
+
+
+def tie_rnnt(model, dev):
+    """Decoder and joiner at vocab BEAM_TIE_V from the model's weights (the
+    first rows of the embedding and output layer), with the BEAM_TIES output
+    rows zeroed and biased: exact logit ties across vocab slices."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.rnnt import Decoder, Joiner
+
+    cfg = dataclasses.replace(model.rnnt_cfg, vocab_size=BEAM_TIE_V)
+    dec, joi = Decoder(cfg, device=dev).eval(), Joiner(cfg).to(dev).eval()
+    with torch.no_grad():
+        dec.embedding.copy_(model.decoder.embedding[:BEAM_TIE_V])
+        dec.conv_weight.copy_(model.decoder.conv_weight)
+        for name in ("encoder_proj", "decoder_proj"):
+            getattr(joi, name).load_state_dict(getattr(model.joiner, name).state_dict())
+        joi.output.weight.copy_(model.joiner.output.weight[:BEAM_TIE_V])
+        joi.output.bias.copy_(model.joiner.output.bias[:BEAM_TIE_V])
+        for tok, bias in BEAM_TIES:
+            joi.output.weight[tok] = 0.0
+            joi.output.bias[tok] = bias
+    return dec, joi, cfg
+
+
+def check_beam(dev, model, parent=None):
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.models.rnnt import Joiner
@@ -408,15 +531,35 @@ def check_beam(dev, model):
     lens = torch.tensor(BEAM_LENS_823, dtype=torch.int32, device=dev)
     err = _beam_compare("T=823 mixed lens", *_beam_pair(enc, lens, model.decoder,
                                                          model.joiner, cfg))
-    ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(
-        enc, lens, model.decoder, model.joiner, cfg, 8), reps=5, warmup=1)
-    plain_ms = time_ms(lambda: beam_search.beam_search_batch(
-        enc, lens, model.decoder, model.joiner, cfg, 8), reps=5, warmup=1)
-    log(f"beam: B {SLICE_BATCH} T 823 V {cfg.vocab_size} beam 8 kernel {ms:.3f} ms "
-        f"plain {plain_ms:.3f} ms")
+
+    # Vocab 1999: slices of unequal width, exact ties across slice boundaries.
+    tdec, tjoi, tcfg = tie_rnnt(model, dev)
+    got, ref = _beam_pair(enc, lens, tdec, tjoi, tcfg)
+    _beam_compare(f"V={BEAM_TIE_V} boundary ties T=823 mixed lens", got, ref)
+    emitted = torch.arange(got.tokens.shape[1], device=dev)[None] < got.num_tokens[:, None]
+    toks = set(got.tokens[emitted].tolist())
+    zero_margin = int((got.entropy[..., 1][emitted] == 0).sum())
+    log(f"beam V={BEAM_TIE_V}: tied tokens emitted "
+        f"{sorted(toks & {tok for tok, _ in BEAM_TIES})}, {zero_margin} of "
+        f"{int(emitted.sum())} emitted tokens with margin 0")
+    assert toks & {tok for tok, _ in BEAM_TIES} and zero_margin > 0, \
+        "the planted ties decided nothing"
+
+    args = (enc, lens, model.decoder, model.joiner, cfg, 8)
+    ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args), reps=5, warmup=1)
+    plain_ms = time_ms(lambda: beam_search.beam_search_batch(*args), reps=5, warmup=1)
+    bnd = beam_bound(*args)
+    longest = int(lens.clamp(0, 823).max())
+    log(f"beam: B {SLICE_BATCH} T 823 V {cfg.vocab_size} beam 8, a cluster of "
+        f"{beam_search_cuda.CLUSTER} blocks a chunk: kernel {ms:.3f} ms "
+        f"({1e3 * ms / longest:.2f} us a frame over the longest row's {longest}), "
+        f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+        f"{int(lens.clamp(0, 823).sum())} chunk-frames)")
+    if parent is not None:
+        beam_ab("B 8 T 823 V 2000 without hotwords", args, None, parent)
     return {"name": "beam_search", "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
             "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:101",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
 
 
 def perturbed_layer(layer, gen):
@@ -472,6 +615,25 @@ def layer_gate(mean, mx):
     return mean <= LAYER_GATE_MEAN and mx <= LAYER_GATE_MAX
 
 
+def layer_bound(flat, x, poslin, lens, heads, cfg):
+    """Bound of one whole-layer launch: x read and the output written once
+    (float32), every operand and the position rows read once; the linears
+    (2 B T_pad d_in d_out), the two depthwise convs, the scores and position
+    band (2 (qd + pd) a weight, 4 more for the softmax) and the three
+    attends over the padded rows, at the bf16 tensor-core rate (bf16
+    operands)."""
+    b, tp, d = x.shape
+    qd, pd, vd = cfg.query_head_dim, cfg.pos_head_dim, cfg.value_head_dim
+    depthwise = (28, 34)  # [K, D] kernels among the operands
+    flops = sum(2 * b * tp * w.shape[0] * w.shape[1] for i, w in enumerate(flat)
+                if w.dim() == 2 and i not in depthwise)
+    flops += sum(2 * b * tp * flat[i].numel() for i in depthwise)
+    hna = flat[2].shape[1] // 3  # nonlin attention: one head of width hna
+    flops += b * heads * tp * tp * (2 * (qd + pd) + 4) + 2 * b * tp * tp * hna
+    flops += 2 * (2 * b * heads * tp * tp * vd)  # self_attn1 and self_attn2
+    return bound(2 * nbytes(x) + nbytes(*flat, poslin, lens), flops, PEAK_BF16)
+
+
 def check_encoder_layer(dev, model):
     """The whole-layer kernel against its twin at every stack shape: batch 8,
     mixed lens (0, 1 and full among them), layer 0 of each stack of the bf16
@@ -515,10 +677,12 @@ def check_encoder_layer(dev, model):
                 el.rel_pos_scores = rel_pos_scores
         ms = time_ms(lambda: el.encoder_layer(layer, x, rev, lens), reps=5, warmup=1)
         plain_ms = time_ms(twin, reps=3, warmup=1)
+        bnd = layer_bound(flat, x, poslin, lens, h, cfg)
         log(f"encoder_layer: stack {stack} B {SLICE_BATCH} T {t} T_pad {tp} D {d} H {h} "
             f"K {cfg.cnn_module_kernel[stack]} lens {lens_list} "
             f"max/scale {mx:.3e} mean/scale {mean:.3e} "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
         log(f"encoder_layer: stack {stack} planted faults (mean/scale, max/scale): " + ", ".join(
             f"{name} ({m:.3e}, {hi:.3e})" for name, (m, hi) in fault_errs.items()))
         if not (finite and layer_gate(mean, mx)):
@@ -529,13 +693,14 @@ def check_encoder_layer(dev, model):
             out = {"name": "encoder_layer_bf16",
                    "source": "sherpa_vietnamese_asr_tpu_torch/csrc/encoder_layer.cu",
                    "replaces": "sherpa_vietnamese_asr_tpu/ops/encoder_layer.py:109",
-                   "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+                   "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, **bnd}
         del got
     assert not failures, "encoder layer parity: " + "; ".join(failures)
     return out
 
 
-def check_beam_hotwords(dev, model, tables):
+def check_beam_hotwords(dev, model, tables, parent=None):
     """The beam kernel's hotword branch against the twin at T = 64 and 823
     (mixed lens, one 0): identical tokens, and tokens that differ from the
     same batch decoded without hotwords."""
@@ -566,13 +731,18 @@ def check_beam_hotwords(dev, model, tables):
                               reps=5, warmup=1)
     plain_ms = time_ms(lambda: beam_search.beam_search_batch(*args[823], hw_tables=tables),
                        reps=3, warmup=1)
+    bnd = beam_bound(*args[823], tables=tables)
     log(f"beam hotwords: B {SLICE_BATCH} T 823 V {cfg.vocab_size} beam 8 "
         f"S {tables.next_state.shape[0]} kernel {ms:.3f} ms, kernel without hotwords "
-        f"{ms_plain_kernel:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{ms_plain_kernel:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    if parent is not None:
+        beam_ab(f"B 8 T 823 V 2000 hotwords S {tables.next_state.shape[0]}", args[823],
+                tables, parent)
     return {"name": "beam_search_hotwords",
             "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
             "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:219",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
 
 
 # ---------------------------------------------------------------- phase 4-5
@@ -710,7 +880,11 @@ def phase_slice_bf16(dev, model16, model32, tmp):
     return launches
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose beam kernel is timed against this one")
+    args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "sherpa_vietnamese_asr_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -720,6 +894,7 @@ def main():
     dev = phase_device()
     log("PHASE device ok")
     phase_build()
+    parent = parent_beam_entry(os.path.abspath(args.parent)) if args.parent else None
 
     from sherpa_vietnamese_asr_tpu_torch.models.registry import random_asr_model
     from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import synthetic_hotword_tables
@@ -733,8 +908,9 @@ def main():
     model16.hotword_tables = tables
     log(f"models: Zipformer-30M random (seed 0), float32 and bfloat16 (hotword table "
         f"S {tables.next_state.shape[0]}) on {dev} in {time.perf_counter() - t0:.1f} s")
-    kernels = [check_fbank(dev), check_attention(dev, model), check_beam(dev, model),
-               check_encoder_layer(dev, model16), check_beam_hotwords(dev, model16, tables)]
+    kernels = [check_fbank(dev), check_attention(dev, model), check_beam(dev, model, parent),
+               check_encoder_layer(dev, model16),
+               check_beam_hotwords(dev, model16, tables, parent)]
     log("PHASE kernel parity ok")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)
@@ -745,7 +921,7 @@ def main():
         k["route"] = "cuda"
         k["launches"] = launches.get(k["name"]) or launches_bf16[k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms")
+             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,43 +27,116 @@
 // had to fetch table columns through one-hot matmuls and cap S at what
 // fits in VMEM; here any S with S * V < 2^31 works.
 //
-// What bounds it on the H100: latency. Frames are sequential and only one
-// block per chunk is busy (8 of 132 SMs at B = 8). Each frame re-reads the
-// joiner weights through L2 (wo alone is 4 MB in fp32; wdp and we add 1.5
-// MB) and does about 10.4 M multiply-adds, then a dozen block barriers for
-// the softmax, the eight top-k passes and the merge. Keeping more SMs busy
-// (splitting the vocab product across blocks of a cluster) and keeping wo
-// closer than L2 are the first targets for later speed work.
+// Design: the TPU's sequential grid becomes a loop over frames, and each
+// chunk gets a thread-block cluster of kCluster (8, the portable size)
+// blocks of 512 threads that split every frame by vocabulary slice and talk
+// through distributed shared memory (DSMEM). Block r owns vocab columns
+// [r*W, min(V, (r+1)*W)), W = ceil(V / 8), and joiner columns likewise. Per
+// frame, with four cluster barriers:
+//   1. every block reads the parents' contexts and scores from the leader
+//      (rank 0) and evaluates the decoder's grouped context conv + ReLU
+//      itself (8 multiply-adds per output, embedding rows through L2);
+//   2. each block computes its J/8 columns of the joiner's hidden layer
+//      h = tanh(enc.we + be + dec.wdp + bdp); barrier; each copies the
+//      whole [J, beam] h from its peers;
+//   3. each block takes its slice's logits [beam, J] x [J, V/8] + bo in
+//      plain fp32 FMA (wo read through L2), then each row's slice max and
+//      sum of exp; barrier; every block combines the 8 partials into the
+//      row's lse, turns its slice into log-probs, and takes the slice's
+//      entropy, Tsallis and top-2 probability terms (ties kept) and its local
+//      exact top-beam (per warp by passes, then over the warps' lists), each
+//      candidate with its unboosted log-prob; barrier;
+//   4. the leader merges the 8 local lists into the exact global top-beam
+//      (the global top-beam lies in the union of the local ones) and the
+//      metric partials, then runs the parent gather, token append, hotword
+//      step, records, dedup and log-add merge; barrier: the new contexts
+//      and scores are published.
+// Only the leader holds the emitted tokens (uint16, double-buffered for the
+// parent gather); every block holds its [beam, V/8] logit slice, the [J,
+// beam] hidden layer and the [D, beam] decoder rows (about 86 KB at T =
+// 823, V = 2000). Per-frame records (parent, token, token log-prob, parent
+// metrics) go to global memory and the leader walks them backwards after
+// the last frame.
 //
-// Design: the TPU's sequential grid becomes a loop over frames inside one
-// block of 512 threads per chunk. The beam state lives in shared memory:
-// the emitted tokens (uint16, double-buffered for the parent gather), the
-// lengths, scores and 2-token contexts, next to the [beam, V] logits, the
-// joiner hidden rows and the decoder rows (about 124 KB at T = 823, V =
-// 2000). The decoder's grouped context conv is evaluated directly (8
-// multiply-adds per output) from embedding rows read through L2; the dense
-// [D, D] matrices were an MXU device. Top-k is `beam` block-wide arg-max
-// passes, each taking the best candidate strictly after the previous winner
-// in the total order, so ties go to the lowest flat index without marking.
-// Per-frame records (parent, token, token log-prob, parent metrics) go to
-// global memory and thread 0 walks them backwards after the last frame.
+// SVT_BEAM_CUT (default 0, the kernel as shipped) is a timing instrument:
+// a build with bit kCutVocab, kCutHidden, kCutLeader or kCutTopk set skips
+// that step of every frame and gives wrong results; tools/beam_stages.py
+// times such builds to split a frame's time by step.
+//
+// What bounds it on the H100: latency. Frames are sequential; each frame
+// costs 10.4 M multiply-adds per chunk (8 M of them the vocab product) and a
+// re-read of the joiner weights through L2 (wo alone is 4 MB in fp32), now
+// spread over 64 SMs at B = 8 instead of 8, plus four cluster barriers and
+// the leader's serial merge. Left for later: wo resident on chip (it does
+// not fit one cluster's shared memory in fp32), one vocab product for the
+// rows of all chunks as the TPU kernel does, and the leader's merge off the
+// frame's critical path.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef SVT_BEAM_CUT
+#define SVT_BEAM_CUT 0
+#endif
+
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int kCut = SVT_BEAM_CUT;
+constexpr int kCutVocab = 1;   // the vocab product
+constexpr int kCutHidden = 2;  // the hidden layer's products and exchange
+constexpr int kCutLeader = 4;  // the leader's gather, records, dedup and merge
+constexpr int kCutTopk = 8;    // slice softmax, metric terms and both top-k merges
+
+constexpr int kCluster = 8;  // blocks per chunk: the portable cluster size
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBeam = 8;
 constexpr int kMaxCtx = 4;
-constexpr int kVPerThread = 4;
+constexpr int kHCols = 64;                          // hidden columns per pass
+constexpr int kHSplits = kThreads / kHCols;         // 8 partial sums each
+constexpr int kVPairs = 128;                        // vocab column pairs per pass
+constexpr int kVSplits = kThreads / kVPairs;        // 4 partial sums over J
+constexpr int kUnroll = 16;                         // weight loads in flight a thread
+constexpr int kRowThreads = kThreads / kMaxBeam;    // top-k: 64 threads a row
+constexpr int kScratch = kHSplits * kHCols * (kMaxBeam + 1);  // floats
+constexpr int kNoIndex = 0x7fffffff;
 constexpr float kNegInf = -1e30f;
 constexpr float kAlpha = 1.0f / 3.0f;
 constexpr float kTsallisScale = -1.5f;  // 1 / (alpha - 1)
+static_assert(kHCols * kMaxBeam == kThreads, "hidden reduce: a thread per (column, beam)");
+static_assert(2 * 2 * kMaxBeam * kVPairs <= kScratch, "vocab reduce scratch");
+static_assert(kCluster * kMaxBeam == 64, "leader merge: two entries a lane");
+static_assert(kWarps * kMaxBeam % 32 == 0, "block merge: whole entries a lane");
 
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
+}
+
+// Strictly after (prev_s, prev_i) in the order of better().
+__device__ __forceinline__ bool after(float s, int i, float prev_s, int prev_i) {
+  return s < prev_s || (s == prev_s && i > prev_i);
+}
+
+// The warp's best (score, index); every lane ends with it.
+__device__ __forceinline__ void warp_best(float& s, int& i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float so = __shfl_xor_sync(0xffffffffu, s, o);
+    const int io = __shfl_xor_sync(0xffffffffu, i, o);
+    if (better(so, io, s, i)) { s = so; i = io; }
+  }
+}
+
+// The same with a payload that travels with the winner.
+__device__ __forceinline__ void warp_best(float& s, int& i, float& pay) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float so = __shfl_xor_sync(0xffffffffu, s, o);
+    const int io = __shfl_xor_sync(0xffffffffu, i, o);
+    const float po = __shfl_xor_sync(0xffffffffu, pay, o);
+    if (better(so, io, s, i)) { s = so; i = io; pay = po; }
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -74,6 +147,15 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+__device__ __forceinline__ void fma8(float* acc, const float* h, float w) {
+  const float4 h0 = *reinterpret_cast<const float4*>(h);
+  const float4 h1 = *reinterpret_cast<const float4*>(h + 4);
+  acc[0] = fmaf(h0.x, w, acc[0]); acc[1] = fmaf(h0.y, w, acc[1]);
+  acc[2] = fmaf(h0.z, w, acc[2]); acc[3] = fmaf(h0.w, w, acc[3]);
+  acc[4] = fmaf(h1.x, w, acc[4]); acc[5] = fmaf(h1.y, w, acc[5]);
+  acc[6] = fmaf(h1.z, w, acc[6]); acc[7] = fmaf(h1.w, w, acc[7]);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -89,31 +171,45 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
             float* out_entropy, int* out_n, float* out_logp, int T, int E,
             int D, int ipg, int K, int J, int V, int beam, int blank, int unk,
             int S, float tsallis_max, float max_entropy) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_lp = reinterpret_cast<float*>(smem);     // [kMaxBeam][V] logits -> log-probs
-  float* s_h = s_lp + kMaxBeam * V;                 // [J][kMaxBeam] joiner hidden
-  float* s_dec = s_h + kMaxBeam * J;                // [D][kMaxBeam] decoder out
-  float* s_enc = s_dec + kMaxBeam * D;              // [E] encoder frame
-  unsigned short* s_tok = reinterpret_cast<unsigned short*>(s_enc + E);  // [2][kMaxBeam][T]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const bool leader = rank == 0;
+  const int b = blockIdx.x / kCluster;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = min(lens[b], T);
+  const int groups = D / ipg, opg = D / groups;
+  const int W = (V + kCluster - 1) / kCluster;  // vocab slice stride
+  const int v_lo = min(V, rank * W), width = min(V, v_lo + W) - v_lo;
+  const int JW = (J + kCluster - 1) / kCluster;  // hidden slice stride
+  const int j_lo = min(J, rank * JW), j_n = min(J, j_lo + JW) - j_lo;
 
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_lp = reinterpret_cast<float*>(smem);     // [kMaxBeam][W] slice logits -> log-probs
+  float* s_h = s_lp + kMaxBeam * W;                 // [J][kMaxBeam] joiner hidden, whole
+  float* s_dec = s_h + kMaxBeam * J;                // [D][kMaxBeam] decoder out
+  float* s_scr = s_dec + kMaxBeam * D;              // [kScratch] partial sums
+  float* s_enc = s_scr + kScratch;                  // [E] encoder frame
+  unsigned short* s_tok = reinterpret_cast<unsigned short*>(s_enc + E);  // leader: [2][kMaxBeam][T]
+
+  // Beam state: the leader's is the state, a peer's a copy of it per frame.
   __shared__ float s_logp[kMaxBeam];
-  __shared__ int s_n[kMaxBeam];
   __shared__ int s_ctx[kMaxBeam][kMaxCtx];
+  // Published to the cluster each frame, one vector load per peer each.
+  __shared__ float2 s_part[kMaxBeam];             // slice max, slice sum of exp
+  __shared__ float4 s_mpart[kMaxBeam];            // slice entropy, Tsallis, p1, p2
+  __shared__ float4 s_cand[kMaxBeam];             // local top-beam: score, index bits, log-prob
+  __shared__ float s_ws[kWarps][kMaxBeam];        // per-warp top-beam lists
+  __shared__ int s_wi[kWarps][kMaxBeam];
+  // The leader's own.
+  __shared__ int s_n[kMaxBeam];
   __shared__ int s_hi[kMaxBeam], s_tk[kMaxBeam], s_newn[kMaxBeam];
   __shared__ int s_newctx[kMaxBeam][kMaxCtx];
-  __shared__ float s_score[kMaxBeam];
+  __shared__ float s_score[kMaxBeam], s_sel_lp[kMaxBeam];
   __shared__ float s_boost[kMaxBeam];             // s_score + hotword delta
   __shared__ int s_hw[kMaxBeam], s_newhw[kMaxBeam];  // automaton states
   __shared__ float s_met[kMaxBeam][4];
   __shared__ bool s_eq[kMaxBeam][kMaxBeam];
-  __shared__ float s_red_s[kWarps];
-  __shared__ int s_red_i[kWarps];
   __shared__ int s_cur, s_best;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int len = min(lens[b], T);
-  const int groups = D / ipg, opg = D / groups;
 
   if (tid < kMaxBeam) {
     s_logp[tid] = tid == 0 ? 0.f : kNegInf;
@@ -122,20 +218,25 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
     for (int k = 0; k < kMaxCtx; ++k) s_ctx[tid][k] = 0;  // [-1, 0] + ys, >= 0
   }
   if (tid == 0) s_cur = 0;
-  __syncthreads();
+  cluster.sync();  // every block of the cluster has started: DSMEM is live
 
   for (int t = 0; t < len; ++t) {
-    const unsigned short* tok_old = s_tok + s_cur * kMaxBeam * T;
-    unsigned short* tok_new = s_tok + (s_cur ^ 1) * kMaxBeam * T;
-
-    // ---- encoder frame and the decoder's grouped context conv + ReLU ----
+    // ---- the parents' contexts and scores, from the leader ----
+    if (!leader && tid < kMaxBeam) {
+      s_logp[tid] = *cluster.map_shared_rank(&s_logp[tid], 0);
+      for (int k = 0; k < K; ++k) s_ctx[tid][k] = *cluster.map_shared_rank(&s_ctx[tid][k], 0);
+    }
     for (int e = tid; e < E; e += kThreads) s_enc[e] = enc[((size_t)b * T + t) * E + e];
+    __syncthreads();
+
+    // ---- the decoder's grouped context conv + ReLU, all of it ----
     for (int o = tid; o < D; o += kThreads) {
       const int g = o / opg;
       float acc[kMaxBeam];
 #pragma unroll
       for (int bb = 0; bb < kMaxBeam; ++bb) acc[bb] = 0.f;
       for (int k = 0; k < K; ++k)
+#pragma unroll 4
         for (int i = 0; i < ipg; ++i) {
           const float w = __ldg(conv_w + ((size_t)o * ipg + i) * K + k);
           const int c = g * ipg + i;
@@ -148,81 +249,155 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
     }
     __syncthreads();
 
-    // ---- joiner projections: h = tanh(enc @ we + be + dec @ wdp + bdp) ----
-    for (int jj = tid; jj < J; jj += kThreads) {
-      float ej = 0.f;
-      for (int e = 0; e < E; ++e) ej = fmaf(s_enc[e], __ldg(we + (size_t)e * J + jj), ej);
-      ej += __ldg(be + jj);
-      float acc[kMaxBeam];
+    // ---- this block's hidden columns: h = tanh(enc @ we + be + dec @ wdp + bdp) ----
+    for (int c0 = 0; c0 < j_n; c0 += kHCols) {
+      const int col = tid % kHCols, sp = tid / kHCols;
+      const int j = j_lo + min(c0 + col, j_n - 1);
+      float ej = 0.f, acc[kMaxBeam];
 #pragma unroll
       for (int bb = 0; bb < kMaxBeam; ++bb) acc[bb] = 0.f;
-      for (int o = 0; o < D; ++o) {
-        const float w = __ldg(wdp + (size_t)o * J + jj);
-        const float4 d0 = *reinterpret_cast<const float4*>(s_dec + o * kMaxBeam);
-        const float4 d1 = *reinterpret_cast<const float4*>(s_dec + o * kMaxBeam + 4);
-        acc[0] = fmaf(d0.x, w, acc[0]); acc[1] = fmaf(d0.y, w, acc[1]);
-        acc[2] = fmaf(d0.z, w, acc[2]); acc[3] = fmaf(d0.w, w, acc[3]);
-        acc[4] = fmaf(d1.x, w, acc[4]); acc[5] = fmaf(d1.y, w, acc[5]);
-        acc[6] = fmaf(d1.z, w, acc[6]); acc[7] = fmaf(d1.w, w, acc[7]);
-      }
-      const float bj = __ldg(bdp + jj);
+      // Rows sp, sp + 8, ... of we and wdp, kUnroll loads issued at a time.
+      int e = kCut & kCutHidden ? E : sp;
+      for (; e + (kUnroll - 1) * kHSplits < E; e += kUnroll * kHSplits) {
+        float w[kUnroll];
 #pragma unroll
-      for (int bb = 0; bb < kMaxBeam; ++bb)
-        s_h[jj * kMaxBeam + bb] = tanhf((acc[bb] + bj) + ej);
+        for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(we + (size_t)(e + u * kHSplits) * J + j);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) ej = fmaf(s_enc[e + u * kHSplits], w[u], ej);
+      }
+      for (; e < E; e += kHSplits) ej = fmaf(s_enc[e], __ldg(we + (size_t)e * J + j), ej);
+      int o = kCut & kCutHidden ? D : sp;
+      for (; o + (kUnroll - 1) * kHSplits < D; o += kUnroll * kHSplits) {
+        float w[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) w[u] = __ldg(wdp + (size_t)(o + u * kHSplits) * J + j);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) fma8(acc, s_dec + (o + u * kHSplits) * kMaxBeam, w[u]);
+      }
+      for (; o < D; o += kHSplits) fma8(acc, s_dec + o * kMaxBeam, __ldg(wdp + (size_t)o * J + j));
+      float* part = s_scr + (sp * kHCols + col) * (kMaxBeam + 1);
+#pragma unroll
+      for (int bb = 0; bb < kMaxBeam; ++bb) part[bb] = acc[bb];
+      part[kMaxBeam] = ej;
+      __syncthreads();
+      const int cc = tid / kMaxBeam, bb = tid % kMaxBeam;
+      if (c0 + cc < j_n) {
+        float a = 0.f, ea = 0.f;
+        for (int q = 0; q < kHSplits; ++q) {
+          const float* p = s_scr + (q * kHCols + cc) * (kMaxBeam + 1);
+          a += p[bb];
+          ea += p[kMaxBeam];
+        }
+        const int jj = j_lo + c0 + cc;
+        s_h[jj * kMaxBeam + bb] = tanhf((a + __ldg(bdp + jj)) + (ea + __ldg(be + jj)));
+      }
+      __syncthreads();
+    }
+    cluster.sync();  // (1) every block's hidden columns are written
+
+    // ---- the whole hidden layer, from the peers ----
+    for (int i = tid; i < J * kMaxBeam / 4 && !(kCut & kCutHidden); i += kThreads) {
+      const int r = (i * 4 / kMaxBeam) / JW;
+      if (r != rank)
+        reinterpret_cast<float4*>(s_h)[i] =
+            reinterpret_cast<const float4*>(cluster.map_shared_rank(s_h, r))[i];
     }
     __syncthreads();
 
-    // ---- vocab logits: [beam, J] x [J, V] ----
-    for (int v0 = 0; v0 < V; v0 += kVPerThread * kThreads) {
-      float acc[kVPerThread][kMaxBeam];
-      int vv[kVPerThread];
+    // ---- this block's vocab slice: [beam, J] x [J, width] + bo ----
+    for (int c0 = 0; c0 < width; c0 += 2 * kVPairs) {
+      const int g = tid % kVPairs, sp = tid / kVPairs;
+      const int va = v_lo + min(c0 + g, width - 1);
+      const int vb = v_lo + min(c0 + g + kVPairs, width - 1);
+      const int jn = (J + kVSplits - 1) / kVSplits, ja = min(J, sp * jn), jz = min(J, ja + jn);
+      float acc_a[kMaxBeam], acc_b[kMaxBeam];
 #pragma unroll
-      for (int r = 0; r < kVPerThread; ++r) {
-        vv[r] = min(v0 + r * kThreads + tid, V - 1);
+      for (int bb = 0; bb < kMaxBeam; ++bb) acc_a[bb] = acc_b[bb] = 0.f;
+      int j = kCut & kCutVocab ? jz : ja;
+      for (; j + kUnroll <= jz; j += kUnroll) {
+        float wa[kUnroll], wb[kUnroll];
 #pragma unroll
-        for (int bb = 0; bb < kMaxBeam; ++bb) acc[r][bb] = 0.f;
-      }
-      for (int j = 0; j < J; ++j) {
-        const float4 h0 = *reinterpret_cast<const float4*>(s_h + j * kMaxBeam);
-        const float4 h1 = *reinterpret_cast<const float4*>(s_h + j * kMaxBeam + 4);
-        const float hb[kMaxBeam] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+        for (int u = 0; u < kUnroll; ++u) {
+          wa[u] = __ldg(wo + (size_t)(j + u) * V + va);
+          wb[u] = __ldg(wo + (size_t)(j + u) * V + vb);
+        }
 #pragma unroll
-        for (int r = 0; r < kVPerThread; ++r) {
-          const float w = __ldg(wo + (size_t)j * V + vv[r]);
-#pragma unroll
-          for (int bb = 0; bb < kMaxBeam; ++bb) acc[r][bb] = fmaf(hb[bb], w, acc[r][bb]);
+        for (int u = 0; u < kUnroll; ++u) {
+          fma8(acc_a, s_h + (j + u) * kMaxBeam, wa[u]);
+          fma8(acc_b, s_h + (j + u) * kMaxBeam, wb[u]);
         }
       }
+      for (; j < jz; ++j) {
+        fma8(acc_a, s_h + j * kMaxBeam, __ldg(wo + (size_t)j * V + va));
+        fma8(acc_b, s_h + j * kMaxBeam, __ldg(wo + (size_t)j * V + vb));
+      }
+      // The four partial sums over J, added as (s0 + s2) + (s1 + s3).
+      float* red = s_scr;  // [2 splits][2 columns][kMaxBeam][kVPairs]
+      if (sp >= 2)
 #pragma unroll
-      for (int r = 0; r < kVPerThread; ++r) {
-        const int v = v0 + r * kThreads + tid;
-        if (v < V) {
-          const float bv = __ldg(bo + v);
+        for (int bb = 0; bb < kMaxBeam; ++bb) {
+          red[(((sp - 2) * 2 + 0) * kMaxBeam + bb) * kVPairs + g] = acc_a[bb];
+          red[(((sp - 2) * 2 + 1) * kMaxBeam + bb) * kVPairs + g] = acc_b[bb];
+        }
+      __syncthreads();
+      if (sp < 2)
 #pragma unroll
-          for (int bb = 0; bb < kMaxBeam; ++bb) s_lp[bb * V + v] = acc[r][bb] + bv;
+        for (int bb = 0; bb < kMaxBeam; ++bb) {
+          acc_a[bb] += red[((sp * 2 + 0) * kMaxBeam + bb) * kVPairs + g];
+          acc_b[bb] += red[((sp * 2 + 1) * kMaxBeam + bb) * kVPairs + g];
+        }
+      __syncthreads();
+      if (sp == 1)
+#pragma unroll
+        for (int bb = 0; bb < kMaxBeam; ++bb) {
+          red[(0 * kMaxBeam + bb) * kVPairs + g] = acc_a[bb];
+          red[(1 * kMaxBeam + bb) * kVPairs + g] = acc_b[bb];
+        }
+      __syncthreads();
+      if (sp == 0) {
+        const int ca = c0 + g, cb = c0 + g + kVPairs;
+#pragma unroll
+        for (int bb = 0; bb < kMaxBeam; ++bb) {
+          if (ca < width)
+            s_lp[bb * W + ca] = (acc_a[bb] + red[(0 * kMaxBeam + bb) * kVPairs + g]) + __ldg(bo + va);
+          if (cb < width)
+            s_lp[bb * W + cb] = (acc_b[bb] + red[(1 * kMaxBeam + bb) * kVPairs + g]) + __ldg(bo + vb);
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
 
-    // ---- per-beam log-softmax and entropy metrics (one warp per beam) ----
-    if (warp < beam) {
-      float* row = s_lp + warp * V;
+    // ---- each row's slice max and sum of exp (one warp per beam row) ----
+    if (warp < beam && !(kCut & kCutTopk)) {
+      const float* row = s_lp + warp * W;
       float m = -INFINITY;
-      for (int v = lane; v < V; v += 32) m = fmaxf(m, row[v]);
+      for (int c = lane; c < width; c += 32) m = fmaxf(m, row[c]);
       m = warp_max(m);
       float se = 0.f;
-      for (int v = lane; v < V; v += 32) se += expf(row[v] - m);
+      for (int c = lane; c < width; c += 32) se += expf(row[c] - m);
       se = warp_sum(se);
+      if (lane == 0) s_part[warp] = make_float2(m, se);
+    }
+    cluster.sync();  // (2) every slice's partials are written
+
+    // ---- row lse from the partials (in rank order); slice log-probs and metric terms ----
+    if (warp < beam && !(kCut & kCutTopk)) {
+      const float2 q = lane < kCluster ? *cluster.map_shared_rank(&s_part[warp], lane)
+                                       : make_float2(-INFINITY, 0.f);
+      const float m = warp_max(q.x);
+      const float term = lane < kCluster ? q.y * expf(q.x - m) : 0.f;
+      float se = 0.f;
+      for (int r = 0; r < kCluster; ++r) se += __shfl_sync(0xffffffffu, term, r);
       const float lse = logf(se);
+      float* row = s_lp + warp * W;
       float ent = 0.f, ts = 0.f, p1 = -1.f, p2 = -1.f;
-      for (int v = lane; v < V; v += 32) {
-        const float z = row[v] - m;
+      for (int c = lane; c < width; c += 32) {
+        const float z = row[c] - m;
         const float p = expf(z) / se;
         ent += p * logf(p + 1e-30f);
         ts += powf(p, kAlpha);
         if (p > p1) { p2 = p1; p1 = p; } else if (p > p2) { p2 = p; }
-        row[v] = z - lse;
+        row[c] = z - lse;
       }
       ent = warp_sum(ent);
       ts = warp_sum(ts);
@@ -233,122 +408,202 @@ beam_kernel(const float* __restrict__ enc, const int* __restrict__ lens,
         p2 = fmaxf(fminf(p1, q1), fmaxf(p2, q2));
         p1 = hi;
       }
-      if (lane == 0) {
-        s_met[warp][0] = (kTsallisScale * (1.f - ts)) / tsallis_max;
-        s_met[warp][1] = p1 - p2;
-        s_met[warp][2] = -ent / max_entropy;
-        s_met[warp][3] = p1;
-      }
+      if (lane == 0) s_mpart[warp] = make_float4(ent, ts, p1, p2);
     }
     __syncthreads();
 
-    // ---- exact top-beam of lp + logp[parent] over beam x V ----
-    float prev_s = INFINITY;
-    int prev_i = -1;
-    for (int p = 0; p < beam; ++p) {
-      float bs = -INFINITY;
-      int bi = 0x7fffffff;
-      for (int bb = 0; bb < beam; ++bb) {
-        const float lp_parent = s_logp[bb];
-        for (int v = tid; v < V; v += kThreads) {
-          const float s = s_lp[bb * V + v] + lp_parent;
-          const int i = bb * V + v;
-          if ((s < prev_s || (s == prev_s && i > prev_i)) && better(s, i, bs, bi)) {
-            bs = s;
-            bi = i;
+    // ---- local exact top-beam of lp + logp[parent] over beam x width ----
+    if (!(kCut & kCutTopk)) {
+      // 64 threads a row: warp w scans row w / 2, columns (w % 2) * 32 + lane + 64k.
+      const int bb = tid / kRowThreads;
+      const float lp_parent = bb < beam ? s_logp[bb] : 0.f;
+      const float* row = s_lp + bb * W;
+      float prev_s = INFINITY;
+      int prev_i = -1;
+      for (int p = 0; p < beam; ++p) {
+        float bs = -INFINITY;
+        int bi = kNoIndex;
+        if (bb < beam)
+          for (int c = tid % kRowThreads; c < width; c += kRowThreads) {
+            const float s = row[c] + lp_parent;
+            const int i = bb * V + v_lo + c;
+            if (after(s, i, prev_s, prev_i) && better(s, i, bs, bi)) { bs = s; bi = i; }
           }
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float so = __shfl_down_sync(0xffffffffu, bs, o);
-        const int io = __shfl_down_sync(0xffffffffu, bi, o);
-        if (better(so, io, bs, bi)) { bs = so; bi = io; }
-      }
-      if (lane == 0) { s_red_s[warp] = bs; s_red_i[warp] = bi; }
-      __syncthreads();
-      if (warp == 0) {
-        bs = lane < kWarps ? s_red_s[lane] : -INFINITY;
-        bi = lane < kWarps ? s_red_i[lane] : 0x7fffffff;
-        for (int o = 16; o > 0; o >>= 1) {
-          const float so = __shfl_down_sync(0xffffffffu, bs, o);
-          const int io = __shfl_down_sync(0xffffffffu, bi, o);
-          if (better(so, io, bs, bi)) { bs = so; bi = io; }
-        }
-        if (lane == 0) { s_score[p] = bs; s_hi[p] = bi / V; s_tk[p] = bi % V; }
+        warp_best(bs, bi);
+        if (lane == 0) { s_ws[warp][p] = bs; s_wi[warp][p] = bi; }
+        prev_s = bs;
+        prev_i = bi;
       }
       __syncthreads();
-      prev_s = s_score[p];
-      prev_i = s_hi[p] * V + s_tk[p];
-    }
-
-    // ---- parent gather, token append, records ----
-    for (int j = 0; j < beam; ++j) {
-      const int hi = s_hi[j], pn = s_n[hi];
-      for (int u = tid; u < pn; u += kThreads)
-        tok_new[j * T + u] = tok_old[hi * T + u];
-    }
-    if (tid < beam) {
-      const int j = tid, hi = s_hi[j], tk = s_tk[j], pn = s_n[hi];
-      const bool is_blank = tk == blank;
-      if (!is_blank) tok_new[j * T + pn] = (unsigned short)tk;
-      s_newn[j] = pn + (is_blank ? 0 : 1);
-      for (int k = 0; k < K; ++k)
-        s_newctx[j][k] = is_blank ? s_ctx[hi][k]
-                                  : (k + 1 < K ? s_ctx[hi][k + 1] : tk);
-      const int p_hw = s_hw[hi];
-      float boost = 0.f;
-      int nhw = p_hw;
-      if (S > 0 && !is_blank && tk != unk) {
-        const size_t cell = (size_t)p_hw * V + tk;
-        boost = hw_delta[cell];
-        nhw = hw_next[cell];
+      if (warp == 0) {  // the block's top-beam over the warps' lists
+        constexpr int kPer = kWarps * kMaxBeam / 32;  // list entries a lane
+        float es[kPer];
+        int ei[kPer];
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) {  // entry e: list e / 8, place e % 8
+          const int e = lane + 32 * q;
+          const bool ok = e % kMaxBeam < beam;
+          es[q] = ok ? s_ws[e / kMaxBeam][e % kMaxBeam] : -INFINITY;
+          ei[q] = ok ? s_wi[e / kMaxBeam][e % kMaxBeam] : kNoIndex;
+        }
+        prev_s = INFINITY;
+        prev_i = -1;
+        for (int p = 0; p < beam; ++p) {
+          float bs = -INFINITY;
+          int bi = kNoIndex;
+#pragma unroll
+          for (int q = 0; q < kPer; ++q)
+            if (after(es[q], ei[q], prev_s, prev_i) && better(es[q], ei[q], bs, bi)) {
+              bs = es[q];
+              bi = ei[q];
+            }
+          warp_best(bs, bi);
+          if (lane == p) {  // with its unboosted log-prob, which only this block has
+            const float lp = bi == kNoIndex ? 0.f : s_lp[(bi / V) * W + (bi % V - v_lo)];
+            s_cand[p] = make_float4(bs, __int_as_float(bi), lp, 0.f);
+          }
+          prev_s = bs;
+          prev_i = bi;
+        }
       }
-      s_boost[j] = s_score[j] + boost;
-      s_newhw[j] = nhw;
-      const size_t r = ((size_t)b * T + t) * beam + j;
-      rec_par[r] = hi;
-      rec_tok[r] = tk;
-      rec_lp[r] = s_lp[hi * V + tk];
-      for (int q = 0; q < 4; ++q) rec_met[r * 4 + q] = s_met[hi][q];
     }
-    __syncthreads();
+    cluster.sync();  // (3) every block's top-beam and metric terms are written
 
-    // ---- dedup: which new beams carry identical sequences (warp per pair) ----
-    for (int pr = warp; pr < beam * beam; pr += kWarps) {
-      const int i = pr / beam, j = pr % beam;
-      if (i >= j) continue;
-      const int n = s_newn[i];
-      bool same = n == s_newn[j];
-      if (same)
-        for (int u = lane; u < n; u += 32)
-          same = same && tok_new[i * T + u] == tok_new[j * T + u];
-      same = __all_sync(0xffffffffu, same);
-      if (lane == 0) s_eq[i][j] = same;
-    }
-    __syncthreads();
+    if (leader) {
+      if (kCut & kCutTopk) {
+        if (tid < beam) { s_score[tid] = 0.f; s_hi[tid] = tid; s_tk[tid] = blank; s_sel_lp[tid] = 0.f; }
+      } else if (warp == 0) {
+        // ---- exact global top-beam over the kCluster local lists ----
+        float es[2], el[2];
+        int ei[2];
+        for (int q = 0; q < 2; ++q) {  // entry e: rank e / 8, place e % 8
+          const int e = lane + 32 * q;
+          const float4 c = e % kMaxBeam < beam
+                               ? *cluster.map_shared_rank(&s_cand[e % kMaxBeam], e / kMaxBeam)
+                               : make_float4(-INFINITY, __int_as_float(kNoIndex), 0.f, 0.f);
+          es[q] = c.x;
+          ei[q] = __float_as_int(c.y);
+          el[q] = c.z;
+        }
+        float prev_s = INFINITY;
+        int prev_i = -1;
+        for (int p = 0; p < beam; ++p) {
+          float bs = -INFINITY, bl = 0.f;
+          int bi = kNoIndex;
+          for (int q = 0; q < 2; ++q)
+            if (after(es[q], ei[q], prev_s, prev_i) && better(es[q], ei[q], bs, bi)) {
+              bs = es[q];
+              bi = ei[q];
+              bl = el[q];
+            }
+          warp_best(bs, bi, bl);
+          if (lane == 0) {
+            s_score[p] = bs;
+            s_hi[p] = bi / V;
+            s_tk[p] = bi % V;
+            s_sel_lp[p] = bl;
+          }
+          prev_s = bs;
+          prev_i = bi;
+        }
+      } else if (warp <= beam) {
+        // ---- parent row warp - 1's metrics from the slices' terms, in rank order ----
+        const int row = warp - 1;
+        const float4 q = lane < kCluster ? *cluster.map_shared_rank(&s_mpart[row], lane)
+                                         : make_float4(0.f, 0.f, -1.f, -1.f);
+        float ent = 0.f, ts = 0.f, p1 = -1.f, p2 = -1.f;
+        for (int r = 0; r < kCluster; ++r) {
+          ent += __shfl_sync(0xffffffffu, q.x, r);
+          ts += __shfl_sync(0xffffffffu, q.y, r);
+          const float a = __shfl_sync(0xffffffffu, q.z, r);
+          const float c = __shfl_sync(0xffffffffu, q.w, r);
+          const float hi = fmaxf(p1, a);
+          p2 = fmaxf(fminf(p1, a), fmaxf(p2, c));
+          p1 = hi;
+        }
+        if (lane == 0) {
+          s_met[row][0] = (kTsallisScale * (1.f - ts)) / tsallis_max;
+          s_met[row][1] = p1 - p2;
+          s_met[row][2] = -ent / max_entropy;
+          s_met[row][3] = p1;
+        }
+      }
+      __syncthreads();
 
-    // ---- log-add merge into the first beam of each group; commit state ----
-    if (tid == 0) {
-      int canon[kMaxBeam];
-      for (int j = 0; j < beam; ++j) {
-        canon[j] = j;
-        for (int i = 0; i < j; ++i)
-          if (s_eq[i][j]) { canon[j] = i; break; }
+      const unsigned short* tok_old = s_tok + s_cur * kMaxBeam * T;
+      unsigned short* tok_new = s_tok + (s_cur ^ 1) * kMaxBeam * T;
+
+      // ---- parent gather, token append, records ----
+      for (int j = 0; j < beam && !(kCut & kCutLeader); ++j) {
+        const int hi = s_hi[j], pn = s_n[hi];
+        for (int u = tid; u < pn; u += kThreads)
+          tok_new[j * T + u] = tok_old[hi * T + u];
       }
-      for (int i = 0; i < beam; ++i) {
-        float m = kNegInf;
-        for (int j = 0; j < beam; ++j) m = fmaxf(m, canon[j] == i ? s_boost[j] : kNegInf);
-        float se = 0.f;
-        for (int j = 0; j < beam; ++j) se += expf((canon[j] == i ? s_boost[j] : kNegInf) - m);
-        s_logp[i] = canon[i] == i ? m + logf(se) : kNegInf;
-        s_n[i] = s_newn[i];
-        s_hw[i] = s_newhw[i];
-        for (int k = 0; k < K; ++k) s_ctx[i][k] = s_newctx[i][k];
+      if (tid < beam && !(kCut & kCutLeader)) {
+        const int j = tid, hi = s_hi[j], tk = s_tk[j], pn = s_n[hi];
+        const bool is_blank = tk == blank;
+        if (!is_blank) tok_new[j * T + pn] = (unsigned short)tk;
+        s_newn[j] = pn + (is_blank ? 0 : 1);
+        for (int k = 0; k < K; ++k)
+          s_newctx[j][k] = is_blank ? s_ctx[hi][k]
+                                    : (k + 1 < K ? s_ctx[hi][k + 1] : tk);
+        const int p_hw = s_hw[hi];
+        float boost = 0.f;
+        int nhw = p_hw;
+        if (S > 0 && !is_blank && tk != unk) {
+          const size_t cell = (size_t)p_hw * V + tk;
+          boost = hw_delta[cell];
+          nhw = hw_next[cell];
+        }
+        s_boost[j] = s_score[j] + boost;
+        s_newhw[j] = nhw;
+        const size_t r = ((size_t)b * T + t) * beam + j;
+        rec_par[r] = hi;
+        rec_tok[r] = tk;
+        rec_lp[r] = s_sel_lp[j];
+        for (int q = 0; q < 4; ++q) rec_met[r * 4 + q] = s_met[hi][q];
       }
-      s_cur ^= 1;
+      __syncthreads();
+
+      // ---- dedup: which new beams carry identical sequences (warp per pair) ----
+      for (int pr = warp; pr < beam * beam && !(kCut & kCutLeader); pr += kWarps) {
+        const int i = pr / beam, j = pr % beam;
+        if (i >= j) continue;
+        const int n = s_newn[i];
+        bool same = n == s_newn[j];
+        if (same)
+          for (int u = lane; u < n; u += 32)
+            same = same && tok_new[i * T + u] == tok_new[j * T + u];
+        same = __all_sync(0xffffffffu, same);
+        if (lane == 0) s_eq[i][j] = same;
+      }
+      __syncthreads();
+
+      // ---- log-add merge into the first beam of each group; commit state ----
+      if (tid == 0 && !(kCut & kCutLeader)) {
+        int canon[kMaxBeam];
+        for (int j = 0; j < beam; ++j) {
+          canon[j] = j;
+          for (int i = 0; i < j; ++i)
+            if (s_eq[i][j]) { canon[j] = i; break; }
+        }
+        for (int i = 0; i < beam; ++i) {
+          float m = kNegInf;
+          for (int j = 0; j < beam; ++j) m = fmaxf(m, canon[j] == i ? s_boost[j] : kNegInf);
+          float se = 0.f;
+          for (int j = 0; j < beam; ++j) se += expf((canon[j] == i ? s_boost[j] : kNegInf) - m);
+          s_logp[i] = canon[i] == i ? m + logf(se) : kNegInf;
+          s_n[i] = s_newn[i];
+          s_hw[i] = s_newhw[i];
+          for (int k = 0; k < K; ++k) s_ctx[i][k] = s_newctx[i][k];
+        }
+        s_cur ^= 1;
+      }
     }
-    __syncthreads();
+    cluster.sync();  // (4) the leader's new state is published
   }
+  cluster.sync();  // no block leaves while a peer may still read its shared memory
+  if (!leader) return;
 
   // ---- finalize (hotwords) and length-normalised selection ----
   if (tid == 0) {
@@ -408,15 +663,29 @@ extern "C" int svt_beam_search(
       V > 65536 || D % ipg != 0 || S < 0 || (long long)S * V >= (1LL << 31) ||
       (S > 0 && (!hw_next || !hw_delta || !hw_node)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kMaxBeam * V + kMaxBeam * J + kMaxBeam * D + E) * 4 +
+  const int W = (V + kCluster - 1) / kCluster;
+  const size_t smem = (size_t)(kMaxBeam * (W + J + D) + kScratch + E) * 4 +
                       (size_t)2 * kMaxBeam * T * 2;
   cudaError_t err = cudaFuncSetAttribute(
       beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  beam_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo, hw_next, hw_delta, hw_node,
-      rec_par, rec_tok, rec_lp, rec_met, out_tokens, out_frames, out_tok_logp,
-      out_entropy, out_n, out_logp, T, E, D, ipg, K, J, V, beam, blank, unk, S,
-      tsallis_max, max_entropy);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, beam_kernel, enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo, hw_next,
+      hw_delta, hw_node, rec_par, rec_tok, rec_lp, rec_met, out_tokens, out_frames,
+      out_tok_logp, out_entropy, out_n, out_logp, T, E, D, ipg, K, J, V, beam, blank,
+      unk, S, tsallis_max, max_entropy);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sherpa_vietnamese_asr_tpu_torch.models.registry import AsrModel, build_modules
+from sherpa_vietnamese_asr_tpu_torch.models.registry import (
+    AsrModel,
+    build_modules,
+    model_device,
+)
 from sherpa_vietnamese_asr_tpu_torch.models.rnnt import RnntConfig
 from sherpa_vietnamese_asr_tpu_torch.models.zipformer import ZipformerConfig
 
@@ -92,10 +96,12 @@ def _load(module, state):
 
 
 def asr_model_from_numpy(enc, dec, joi, zip_cfg: ZipformerConfig,
-                         rnnt_cfg: RnntConfig, id2token, device="cpu",
+                         rnnt_cfg: RnntConfig, id2token, device="cuda",
                          name: str = "converted",
                          beam_size: int = 8) -> AsrModel:
-    """Build an AsrModel from the JAX package's parameter trees (numpy leaves)."""
+    """Build an AsrModel from the JAX package's parameter trees (numpy
+    leaves) on `device`, the card by default (raises without one)."""
+    device = model_device(device)
     model = build_modules(name, zip_cfg, rnnt_cfg, id2token, beam_size)
     _load(model.encoder, encoder_state_dict(enc))
     _load(model.decoder, decoder_state_dict(dec))

@@ -55,6 +55,18 @@ class AsrModel:
         return self
 
 
+def model_device(device) -> torch.device:
+    """The device a model is built on. Models go to the card unless the
+    caller names the CPU; a CUDA device on a host without one raises, so a
+    model never lands on the CPU by default."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"model device {device}: no CUDA device is available; pass "
+            f"device=\"cpu\" to build the model on the CPU")
+    return device
+
+
 def synthetic_vocab(vocab_size: int, seed: int = 0) -> list:
     """Synthetic BPE-like vocab for tests/bench: ids 0/1/2 are
     <blk>/<sos/eos>/<unk>; ~60% of pieces start a word (U+2581 prefix)."""
@@ -104,14 +116,16 @@ def random_asr_model(name: str = MODEL_30M, vocab_size: int = 2000,
                      seed: int = 0, beam_size: int = 8,
                      compute_dtype: str = "float32",
                      zip_cfg: ZipformerConfig | None = None,
-                     device="cpu",
+                     device="cuda",
                      generator: torch.Generator | None = None) -> AsrModel:
     """Random-weight model at the true architecture sizes (same shapes as the
     JAX package's random_asr_model; values come from `generator`, or from a
     CPU generator seeded with `seed`). compute_dtype is "float32" or
     "bfloat16"; master weights stay float32 either way, so one seed gives
-    the same weights in both tiers. Pass zip_cfg=TINY_ZIPFORMER for fast
-    CPU tests."""
+    the same weights in both tiers. The model goes to `device`, the card
+    by default (raises without one). Pass zip_cfg=TINY_ZIPFORMER and
+    device="cpu" for fast CPU tests."""
+    device = model_device(device)
     if zip_cfg is not None:
         zcfg = zip_cfg
     else:

@@ -4,7 +4,7 @@
 # included. beam_search_batch_cuda is the kernel's wrapper: for CPU tensors it
 # runs the plain twin ops/beam_search.beam_search_batch; for CUDA tensors it
 # launches the kernel, which runs every frame and the backward walk over its
-# records in one launch, or raises.
+# records in one launch (a cluster of CLUSTER blocks per chunk), or raises.
 
 from __future__ import annotations
 
@@ -25,11 +25,18 @@ launches = 0
 hotword_launches = 0
 
 MAX_BEAM = 8
-_SMEM_LIMIT = 227 * 1024
+CLUSTER = 8  # blocks per chunk, each owning a 1/8 slice of the vocab
+_SCRATCH = 8 * 64 * (MAX_BEAM + 1)  # the kernel's partial-sum floats
+_SMEM_LIMIT = 227 * 1024 - 4 * 1024  # less the kernel's static shared memory
 
 
 def _kernel_smem_bytes(t, e, d, j, v) -> int:
-    return (MAX_BEAM * (v + j + d) + e) * 4 + 2 * MAX_BEAM * t * 2
+    """Dynamic shared memory of one block: its [beam, ceil(V/8)] logit
+    slice, the [J, beam] hidden layer, the [D, beam] decoder rows, partial
+    sums, the encoder frame, and the [2, beam, T] uint16 token histories
+    that only the cluster's leader uses."""
+    w = -(-v // CLUSTER)
+    return (MAX_BEAM * (w + j + d) + _SCRATCH + e) * 4 + 2 * MAX_BEAM * t * 2
 
 
 def _hotword_args(hw, dev, v):
@@ -53,7 +60,10 @@ def _hotword_args(hw, dev, v):
             hw.node_score.data_ptr()], s
 
 
-def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw):
+def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
+                      entry=None):
+    """Launch svt_beam_search, or `entry`, another build of the same C entry
+    point (an A/B against an earlier kernel), which counts no launch."""
     global launches, hotword_launches
     dev = enc_out.device
     b, t, e = enc_out.shape
@@ -104,17 +114,18 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw):
     _, max_entropy, tsallis_max = metric_constants(v)
     outs = [res.tokens, res.frames, res.tok_logp, res.entropy,
             res.num_tokens, res.total_logp]
-    lib = cuda_lib.library()
-    status = lib.svt_beam_search(
+    fn = entry or cuda_lib.library().svt_beam_search
+    status = fn(
         *[x.data_ptr() for x in args], *hw_ptrs,
         *[x.data_ptr() for x in recs + outs],
         b, t, e, d, ipg, k, j, v, beam_size, cfg.blank_id, cfg.unk_id, s_hw,
         float(tsallis_max), float(max_entropy), cuda_lib.stream(dev))
     cuda_lib.check(status, "svt_beam_search")
-    if hw is None:
-        launches += 1
-    else:
-        hotword_launches += 1
+    if entry is None:
+        if hw is None:
+            launches += 1
+        else:
+            hotword_launches += 1
     return res
 
 

@@ -200,7 +200,7 @@ def tiny_bf16():
     tm = asr_model_from_numpy(enc, dec, joi,
                               ZipformerConfig(**dataclasses.asdict(jm.zip_cfg)),
                               RnntConfig(**dataclasses.asdict(jm.rnnt_cfg)),
-                              jm.id2token, beam_size=4)
+                              jm.id2token, device="cpu", beam_size=4)
     assert tm.zip_cfg.compute_dtype == "bfloat16"
     return jm, tm
 

@@ -36,7 +36,7 @@ def _convert(jm, beam_size):
     zc = ZipformerConfig(**dataclasses.asdict(jm.zip_cfg))
     rc = RnntConfig(**dataclasses.asdict(jm.rnnt_cfg))
     return asr_model_from_numpy(enc, dec, joi, zc, rc, jm.id2token,
-                                beam_size=beam_size)
+                                device="cpu", beam_size=beam_size)
 
 
 def _assert_words_equal(got, ref):
@@ -183,7 +183,8 @@ def test_unported_stages_raise(config, model_pair):
         TranscriberPipeline,
     )
 
-    m = random_asr_model(vocab_size=20, zip_cfg=TINY_ZIPFORMER, beam_size=2)
+    m = random_asr_model(vocab_size=20, zip_cfg=TINY_ZIPFORMER, beam_size=2,
+                         device="cpu")
     with pytest.raises(NotImplementedError):
         TranscriberPipeline("unused.wav", (m, m) if model_pair else m,
                             config=config)

@@ -31,7 +31,7 @@ def models():
     tm = asr_model_from_numpy(
         enc, dec, joi, dataclasses.replace(T_TINY, pos_dtype="float32"),
         RnntConfig(**dataclasses.asdict(jm.rnnt_cfg)), jm.id2token,
-        beam_size=4)
+        device="cpu", beam_size=4)
     return jm, tm
 
 
@@ -95,7 +95,7 @@ def test_random_model_has_the_jax_shapes():
                    jrnnt.init_joiner_params(k, rcfg)),
         jax.random.PRNGKey(0))
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    tm = registry.random_asr_model(vocab_size=2000)
+    tm = registry.random_asr_model(vocab_size=2000, device="cpu")
     for module, state in ((tm.encoder, convert.encoder_state_dict(zeros[0])),
                           (tm.decoder, convert.decoder_state_dict(zeros[1])),
                           (tm.joiner, convert.joiner_state_dict(zeros[2]))):
@@ -139,3 +139,57 @@ def test_fp32_policy_turns_tf32_off_and_the_encoder_checks_it():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def _constructor(name):
+    from sherpa_vietnamese_asr_tpu_torch.models import convert, registry
+
+    return {"random_asr_model": (registry, registry.random_asr_model),
+            "asr_model_from_numpy": (convert, convert.asr_model_from_numpy)}[name]
+
+
+@pytest.mark.parametrize("name", ["random_asr_model", "asr_model_from_numpy"])
+def test_model_constructors_default_to_the_card(name):
+    import inspect
+
+    _, fn = _constructor(name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["random_asr_model", "asr_model_from_numpy"])
+def test_model_default_raises_without_cuda_and_builds_nothing(name, monkeypatch):
+    """Without a card the default device raises before any module is built:
+    no silent CPU model."""
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import TINY_ZIPFORMER
+    from sherpa_vietnamese_asr_tpu_torch.models.rnnt import RnntConfig
+
+    module, fn = _constructor(name)
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a model was built without a device")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(module, "build_modules", no_build)
+    args = ({}, {}, {}, TINY_ZIPFORMER, RnntConfig(), []) \
+        if name == "asr_model_from_numpy" else ()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(*args)
+
+
+def test_random_model_asks_for_cuda_by_default(monkeypatch):
+    """With a card present the default model goes to it; device="cpu" keeps
+    it on the CPU."""
+    from sherpa_vietnamese_asr_tpu_torch.models import registry
+
+    placed = []
+
+    def record(self, device):
+        placed.append(torch.device(device))
+        return self
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(registry.AsrModel, "to", record)
+    registry.random_asr_model(vocab_size=20, zip_cfg=registry.TINY_ZIPFORMER)
+    registry.random_asr_model(vocab_size=20, zip_cfg=registry.TINY_ZIPFORMER,
+                              device="cpu")
+    assert [d.type for d in placed] == ["cuda", "cpu"]
