@@ -15,10 +15,12 @@ Phases (any failure raises and the script exits non-zero):
      with the kernel's device time and the whole fbank_batch's framing
      split; the whole-layer kernel at all six Zipformer-30M stack shapes
      with perturbed biases, norm and bypasses, where six planted faults of
-     the twin must fail the same gate; the beam kernel with and without a
-     hotword table, and at vocab 1999 with ties planted across its vocab
-     slices; with --parent DIR, the beam kernel of the checkout in DIR timed
-     against this one in turns);
+     the twin must fail the same gate, with the device time of its parts
+     (products, score pass, depthwise conv, elementwise), the products'
+     TFLOP/s and cuBLAS's time for the same 20 products; the beam kernel
+     with and without a hotword table, and at vocab 1999 with ties planted
+     across its vocab slices; with --parent DIR, the beam and layer kernels
+     of the checkout in DIR timed against these in turns);
   4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
      three WAV files with a random-weight Zipformer-30M model (vocab 2000,
      beam 8, float32), checking the result contract and that every kernel of
@@ -442,19 +444,45 @@ def beam_bound(enc, lens, decoder, joiner, cfg, beam, tables=None):
     return bound(read + written, frames * per_frame, PEAK_FP32)
 
 
-def parent_beam_entry(parent):
-    """svt_beam_search of the checkout at `parent`, built alone from its
-    csrc/beam_search.cu into build/parent_beam/ (the C entry point and its
-    arguments are the same)."""
+def parent_entries(parent):
+    """{"beam": svt_beam_search, "layer": svt_encoder_layer_bf16} of the
+    checkout at `parent`, each built alone from its csrc/ source into
+    build/parent_kernels/ with the parent's nvcc flags, the two nvcc started
+    together. Each entry point carries the parent's own argtypes (its
+    cuda_lib.SIGNATURES): the beam kernel's arguments are this one's, the
+    layer kernel's may not be (parent_layer)."""
+    import ctypes
     from pathlib import Path
 
-    from sherpa_vietnamese_asr_tpu_torch.tools.beam_stages import build_entries
+    from sherpa_vietnamese_asr_tpu_torch.ops import cuda_lib
 
-    src = Path(parent) / "sherpa_vietnamese_asr_tpu_torch" / "csrc" / "beam_search.cu"
+    pkg = Path(parent) / "sherpa_vietnamese_asr_tpu_torch"
+    lib_py = pkg / "ops" / "cuda_lib.py"
+    theirs = {"__file__": str(lib_py), "__name__": "parent_cuda_lib"}
+    exec(compile(lib_py.read_text(), str(lib_py), "exec"), theirs)
+    out_dir = Path(REPO) / "build" / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fn = build_entries({"parent": (src, [])}, Path(REPO) / "build" / "parent_beam")["parent"]
-    log(f"parent beam kernel: built {src} in {time.perf_counter() - t0:.1f} s")
-    return fn
+    jobs = {}
+    for name, src, symbol in (("beam", "beam_search.cu", "svt_beam_search"),
+                              ("layer", "encoder_layer.cu", "svt_encoder_layer_bf16")):
+        lib = out_dir / f"lib{name}.so"
+        cmd = [cuda_lib.find_nvcc(), *theirs["NVCC_FLAGS"], "-o", str(lib),
+               str(pkg / "csrc" / src)]
+        jobs[name] = (lib, symbol, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, symbol, proc) in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name} kernel:\n{out}")
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = theirs["SIGNATURES"][symbol]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    log(f"parent kernels: built {pkg / 'csrc'} beam_search.cu and encoder_layer.cu in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return fns
 
 
 def beam_ab(label, args, tables, parent):
@@ -556,7 +584,7 @@ def check_beam(dev, model, parent=None):
         f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
         f"{int(lens.clamp(0, 823).sum())} chunk-frames)")
     if parent is not None:
-        beam_ab("B 8 T 823 V 2000 without hotwords", args, None, parent)
+        beam_ab("B 8 T 823 V 2000 without hotwords", args, None, parent["beam"])
     return {"name": "beam_search", "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
             "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:101",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
@@ -634,16 +662,87 @@ def layer_bound(flat, x, poslin, lens, heads, cfg):
     return bound(2 * nbytes(x) + nbytes(*flat, poslin, lens), flops, PEAK_BF16)
 
 
-def check_encoder_layer(dev, model):
+def parent_layer(fn, layer, x, rev, lens):
+    """The parent checkout's whole-layer kernel on these inputs, called with
+    its own C arguments: this kernel's (through the wrapper), or those of the
+    WMMA kernel before the wgmma products (11 pointers, 13 ints and the
+    stream: no K-major weights, plan, shadow or SM count)."""
+    import ctypes
+
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import cuda_lib
+    from sherpa_vietnamese_asr_tpu_torch.ops import encoder_layer as el
+
+    cfg = layer.cfg
+    flat, w_pos = layer.kernel_layout()
+    qd, pd, vd, h = cfg.query_head_dim, cfg.pos_head_dim, cfg.value_head_dim, layer.heads
+    poslin = el.poslin_bf16(rev, w_pos, h)
+    if len(fn.argtypes) == len(cuda_lib.SIGNATURES["svt_encoder_layer_bf16"]):
+        return el._encoder_layer_cuda(el.kernel_operands(layer, flat), x, poslin, lens, h, qd,
+                                      pd, vd, entry=fn)
+    assert len(fn.argtypes) == 25, "parent layer kernel: unknown C arguments"
+    b, tp, d, _, _, _, _, hna, ff1, ff2, ff3 = el.layer_shape(flat, x.shape, h, qd, pd, vd)
+    m, bf16 = b * tp, torch.bfloat16
+
+    def ws(cols, dtype=bf16):
+        return torch.empty((m, cols), dtype=dtype, device=x.device)
+
+    out = torch.empty_like(x)
+    bufs = (ws(h * (2 * qd + pd)), torch.empty((b, h, tp, tp), dtype=bf16, device=x.device),
+            ws(max(ff1, ff2, ff3, 3 * hna, 2 * d, h * vd)), ws(max(hna, h * vd, d)),
+            ws(max(hna, h * vd)), ws(d, torch.float32))
+    lens32 = lens.to(torch.int32).contiguous()
+    ptrs = (ctypes.c_void_p * el.N_FLAT)(*[w.data_ptr() for w in flat])
+    status = fn(x.data_ptr(), lens32.data_ptr(), poslin.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(),
+                *[t.data_ptr() for t in bufs], b, tp, d, h, qd, pd, vd, hna, ff1, ff2, ff3,
+                flat[28].shape[0], poslin.shape[1], cuda_lib.stream(x.device))
+    cuda_lib.check(status, "parent svt_encoder_layer_bf16")
+    return out
+
+
+def products_library_ms(products, dev):
+    """cuBLAS's time for the layer's 20 products, (event ms, device ms from
+    torch.profiler): one bf16 torch.matmul each at the product's shape (an
+    attend as a batched product of the transposed keys-major weights), on
+    uniform random operands. A yardstick only: the port never calls it."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
+
+    pairs = []
+    for p in products:
+        def operand(*shape):
+            return torch.empty(shape, dtype=torch.bfloat16, device=dev).uniform_(-1, 1)
+
+        if p.attend:
+            pairs.append((operand(p.batches, p.k, p.m).transpose(1, 2),
+                          operand(p.batches, p.k, p.n)))
+        else:
+            pairs.append((operand(p.m, p.k), operand(p.k, p.n)))
+    def run():
+        return [torch.matmul(a, b) for a, b in pairs]
+
+    ms = time_ms(run, reps=5, warmup=1)
+    busy, _ = profile_calls(run, reps=5)
+    return ms, busy
+
+
+def check_encoder_layer(dev, model, parent=None):
     """The whole-layer kernel against its twin at every stack shape: batch 8,
     mixed lens (0, 1 and full among them), layer 0 of each stack of the bf16
     random Zipformer-30M with perturbed biases, norm and bypasses, x ~ N(0, 1)
     on valid frames and zero padding. The twin with each planted fault of
-    layer_faults() must fail the same gate."""
+    layer_faults() must fail the same gate. Then, at each shape: the device
+    time of the kernel's parts from torch.profiler, the products' TFLOP/s,
+    cuBLAS over the same 20 products, and with a parent checkout its layer
+    kernel against this one in turns (parent, this, this, parent)."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.models.zipformer import _padded_rev_pos_emb
     from sherpa_vietnamese_asr_tpu_torch.ops import encoder_layer as el
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import layer_split, profile_calls
 
     cfg = model.zip_cfg
     gen = torch.Generator(device="cpu").manual_seed(3)
@@ -685,6 +784,29 @@ def check_encoder_layer(dev, model):
             f"({bnd['bound_by']})")
         log(f"encoder_layer: stack {stack} planted faults (mean/scale, max/scale): " + ", ".join(
             f"{name} ({m:.3e}, {hi:.3e})" for name, (m, hi) in fault_errs.items()))
+        products = el.layer_products(*el.layer_shape(flat, x.shape, h, cfg.query_head_dim,
+                                                     cfg.pos_head_dim, cfg.value_head_dim))
+        busy, per_name = profile_calls(lambda: el.encoder_layer(layer, x, rev, lens), reps=10)
+        parts = layer_split(per_name)
+        flops = sum(p.flops for p in products)
+        lib_ms, lib_device = products_library_ms(products, dev)
+        log(f"encoder_layer: stack {stack} device {busy:.4f} ms: " + ", ".join(
+            f"{part} {v:.4f} ms" for part, v in parts.items())
+            + f"; products {flops / 1e9:.2f} GFLOP at "
+            f"{flops / parts['products'] / 1e9:.1f} TFLOP/s; cuBLAS bf16 over the same 20 "
+            f"products {lib_ms:.4f} ms ({lib_device:.4f} ms device)")
+        if parent is not None:
+            ref = parent_layer(parent["layer"], layer, x, rev, lens)
+            p_mean, p_max, p_abs = layer_errors(got, ref, lens_list)
+            turns = [time_ms(lambda: parent_layer(parent["layer"], layer, x, rev, lens)
+                             if who == "parent" else el.encoder_layer(layer, x, rev, lens),
+                             reps=5, warmup=1)
+                     for who in ("parent", "this", "this", "parent")]
+            log(f"encoder_layer A/B stack {stack}: parent {turns[0]:.3f} / {turns[3]:.3f} ms, "
+                f"this {turns[1]:.3f} / {turns[2]:.3f} ms (parent, this, this, parent); "
+                f"this vs parent max |diff| {p_abs:.3e} (mean/scale {p_mean:.3e}, max/scale "
+                f"{p_max:.3e})")
+            del ref
         if not (finite and layer_gate(mean, mx)):
             failures.append(f"stack {stack}: kernel vs twin outside the gate")
         failures += [f"stack {stack}: planted fault {name} passes the gate"
@@ -738,7 +860,7 @@ def check_beam_hotwords(dev, model, tables, parent=None):
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     if parent is not None:
         beam_ab(f"B 8 T 823 V 2000 hotwords S {tables.next_state.shape[0]}", args[823],
-                tables, parent)
+                tables, parent["beam"])
     return {"name": "beam_search_hotwords",
             "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
             "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:219",
@@ -883,7 +1005,7 @@ def phase_slice_bf16(dev, model16, model32, tmp):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose beam kernel is timed against this one")
+                    help="a checkout whose beam and layer kernels are timed against these")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "sherpa_vietnamese_asr_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -894,7 +1016,7 @@ def main(argv=None):
     dev = phase_device()
     log("PHASE device ok")
     phase_build()
-    parent = parent_beam_entry(os.path.abspath(args.parent)) if args.parent else None
+    parent = parent_entries(os.path.abspath(args.parent)) if args.parent else None
 
     from sherpa_vietnamese_asr_tpu_torch.models.registry import random_asr_model
     from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import synthetic_hotword_tables
@@ -909,7 +1031,7 @@ def main(argv=None):
     log(f"models: Zipformer-30M random (seed 0), float32 and bfloat16 (hotword table "
         f"S {tables.next_state.shape[0]}) on {dev} in {time.perf_counter() - t0:.1f} s")
     kernels = [check_fbank(dev), check_attention(dev, model), check_beam(dev, model, parent),
-               check_encoder_layer(dev, model16),
+               check_encoder_layer(dev, model16, parent),
                check_beam_hotwords(dev, model16, tables, parent)]
     log("PHASE kernel parity ok")
     with tempfile.TemporaryDirectory() as tmp:

@@ -22,6 +22,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
@@ -210,6 +211,13 @@ def _padded_rev_pos_emb(t: int, t_pad: int, pos_dim: int,
     full = np.zeros((2 * t_pad - 1 + r, pos_dim), np.float32)
     full[t_pad - t: t_pad - t + 2 * t - 1] = pe[::-1]
     return full
+
+
+@functools.lru_cache(maxsize=32)
+def _rev_pos_on(t: int, t_pad: int, pos_dim: int, device) -> torch.Tensor:
+    """_padded_rev_pos_emb on `device`, made once per shape: each layer then
+    projects the same tensor once (ops/encoder_layer.layer_poslin)."""
+    return torch.from_numpy(_padded_rev_pos_emb(t, t_pad, pos_dim)).to(device)
 
 
 def compact_rel_pos_emb(t: int, pos_dim: int) -> np.ndarray:
@@ -519,11 +527,11 @@ class ZipformerEncoder(nn.Module):
             stack_lens = torch.div(lens + ds - 1, ds, rounding_mode="floor")
             if use_layer_kernel(cfg, i, t_ds, h.device.type):
                 tp = -(-t_ds // LAYER_ROWS) * LAYER_ROWS
-                rev = torch.from_numpy(
-                    _padded_rev_pos_emb(t_ds, tp, cfg.pos_dim)).to(h.device)
+                rev = _rev_pos_on(t_ds, tp, cfg.pos_dim, h.device)
+                lens32 = stack_lens.to(torch.int32)  # once a stack, not a layer
                 hs_p = F.pad(hs, (0, 0, 0, tp - t_ds))
                 for layer in stack.layers:
-                    hs_p = encoder_layer(layer, hs_p, rev, stack_lens)
+                    hs_p = encoder_layer(layer, hs_p, rev, lens32)
                 hs = hs_p[:, :t_ds]
             else:
                 pad_mask = torch.arange(t_ds, device=h.device)[None, :] \

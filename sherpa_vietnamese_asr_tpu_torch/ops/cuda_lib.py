@@ -8,6 +8,9 @@
 # loads at once. Each C entry point takes raw data pointers plus the CUDA
 # stream, launches, and returns cudaGetLastError(); the Python wrappers in
 # ops/ check arguments, allocate outputs and raise on a non-zero status.
+# Nothing links libcuda: csrc/encoder_layer.cu fetches libcuda's
+# cuTensorMapEncodeTiled (TMA descriptors) through the runtime's
+# cudaGetDriverEntryPoint.
 
 from __future__ import annotations
 
@@ -42,10 +45,11 @@ SIGNATURES = {
     # | B, T, E, D, ipg, K, J, V, beam, blank, unk, S | tsallis_max,
     # max_entropy | stream
     "svt_beam_search": [_P] * 23 + [_I] * 12 + [_F, _F, _P],
-    # x, lens, poslin, weights (host array of 42 pointers), out,
-    # ws_proj, ws_w, ws_a, ws_b, ws_c, ws_x
-    # | B, T_pad, D, H, qd, pd, vd, hna, ff1, ff2, ff3, K, pos_rows | stream
-    "svt_encoder_layer_bf16": [_P] * 11 + [_I] * 13 + [_P],
+    # x, lens, poslin, weights and K-major weights (host arrays of 42
+    # pointers), plan (host array of 20 x 4 ints), out,
+    # ws_proj, ws_w, ws_a, ws_b, ws_c, ws_x, ws_x16
+    # | B, T_pad, D, H, qd, pd, vd, hna, ff1, ff2, ff3, K, pos_rows, sms | stream
+    "svt_encoder_layer_bf16": [_P] * 14 + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()

@@ -17,10 +17,17 @@
 #   * the residual stream, BiasNorm and both bypasses are f32.
 # Products of bf16 values are exact in f32, so the twin is the TPU kernel's
 # arithmetic up to summation order on any backend (on CUDA with TF32 off).
+#
+# The kernel runs a layer's 20 products (layer_products) through one
+# warp-specialised wgmma kernel fed by TMA; tile_plan picks each product's
+# tile and ring here, and epilogue_map / product_tiles mirror the kernel's
+# walk over tiles and accumulator registers for the CPU tests.
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -28,11 +35,182 @@ from sherpa_vietnamese_asr_tpu_torch.ops import cuda_lib
 
 R = 128  # the sequence is zero-padded to a multiple of R, as in the JAX package
 N_FLAT = 42
+# Operand slots of the 17 linear weights [d_in, d_out] among the 42; the
+# kernel reads their K-major copies [d_out, d_in] (KernelOperands.flat_t).
+LINEAR_WEIGHTS = (0, 2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26, 30, 32, 36)
+
+# csrc/encoder_layer.cu product_kernel: 128-row tiles (two consumer
+# warpgroups of wgmma m64), stages of 64 deep, 227 KB of shared memory a
+# block. A linear's tile is one of LINEAR_BN columns wide, in m64n64k16
+# steps; an attend's is up to SA_MAX_N or NONLIN_MAX_N columns in m64n16k16
+# steps (its values arrive as 16-column chunks).
+BM, BK = 128, 64
+LINEAR_BN, LINEAR_NW, ATTEND_NW = (64, 128, 192, 256), 64, 16
+MAX_STAGES = 8
+SMEM_LIMIT = 232448
+SA_MAX_N, NONLIN_MAX_N = 16, 192  # attend widths the kernel is built for
 
 # Kernel launches of encoder_layer() on CUDA tensors.
 launches = 0
 
 _B16, _F32 = torch.bfloat16, torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Product:
+    """One product of the layer: m rows (of one batch) x n valid columns,
+    depth k, over `batches` = B * zdiv batches. An attend reads the keys-major
+    weights as A and a value buffer as B; zdiv > 1 is a self-attention's
+    heads (head h writes columns [h n, h n + n))."""
+    name: str
+    m: int
+    n: int
+    k: int
+    batches: int = 1
+    attend: bool = False
+    zdiv: int = 1
+
+    @property
+    def flops(self):
+        return 2 * self.batches * self.m * self.n * self.k
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    bm: int
+    bn: int
+    nw: int      # wgmma width: the tile is bn / nw instructions wide
+    stages: int
+
+    @property
+    def smem_bytes(self):
+        """The kernel's dynamic shared memory: 1 KB of alignment slack, the
+        ring of A and B tiles and two mbarriers a stage."""
+        return 1024 + self.stages * ((self.bm + self.bn) * BK * 2 + 16)
+
+
+def layer_products(b, t_pad, d, h, qd, pd, vd, hna, ff1, ff2, ff3):
+    """The 20 products of one layer in the kernel's launch order (the order
+    of its plan argument)."""
+    m, hv = b * t_pad, h * vd
+
+    def lin(name, n, k):
+        return Product(name, m, n, k)
+
+    def att(name, n, heads):
+        return Product(name, t_pad, n, t_pad, b * heads, True, heads)
+
+    return (lin("attn_in", h * (2 * qd + pd), d),
+            lin("ff1_in", ff1, d), lin("ff1_out", d, ff1),
+            lin("nonlin_in", 3 * hna, d), att("nonlin_attend", hna, 1),
+            lin("nonlin_out", d, hna),
+            lin("sa1_in", hv, d), att("sa1_attend", vd, h), lin("sa1_out", d, hv),
+            lin("conv1_in", 2 * d, d), lin("conv1_out", d, d),
+            lin("ff2_in", ff2, d), lin("ff2_out", d, ff2),
+            lin("sa2_in", hv, d), att("sa2_attend", vd, h), lin("sa2_out", d, hv),
+            lin("conv2_in", 2 * d, d), lin("conv2_out", d, d),
+            lin("ff3_in", ff3, d), lin("ff3_out", d, ff3))
+
+
+def layer_shape(flat, x_shape, heads, qd, pd, vd):
+    """layer_products' arguments for a layer with operands `flat` (the
+    TPU kernel's 42) on x of shape [B, T_pad, D]."""
+    b, t_pad, d = x_shape
+    return (b, t_pad, d, heads, qd, pd, vd, flat[2].shape[1] // 3,  # nl_in_w: [D, 3 hna]
+            flat[14].shape[1], flat[18].shape[1], flat[22].shape[1])
+
+
+def tile_plan(product, sms=132):
+    """The tile plan of one product on a card with `sms` multiprocessors.
+
+    An attend takes all its columns in one tile (rounded up to the wgmma
+    width 16): it streams the weights once. A self-attention head's value
+    box starts 16-byte aligned, at column h n rounded down to 8, so its
+    columns sit head_shift(h, n) into the tile. A linear takes the width of
+    LINEAR_BN with the least waves x (width + 64), the narrower on a tie: a
+    tile's time grows with its width plus a fixed part (its A tile and
+    epilogue), and the grid runs in waves of `sms` tiles. On an H100, at
+    the Zipformer-30M linears, it picks the fastest width or one within
+    11% of it (tools/product_sweep.py; PERF.md). The ring is as deep as
+    shared memory holds, at most MAX_STAGES.
+    """
+    n, k = product.n, product.k
+    if product.attend:
+        limit = SA_MAX_N if product.zdiv > 1 else NONLIN_MAX_N
+        if n > limit or n % 2 or product.m % 8 or (product.zdiv * n) % 8:
+            raise ValueError(f"encoder layer kernel: attend {product.name} of width {n} "
+                             f"(at most {limit}, even) over {product.m} rows")
+        reach = max(head_shift(h, n) + n for h in range(product.zdiv))
+        bn, nw = -(-reach // 16) * 16, ATTEND_NW
+        if bn > limit:
+            raise ValueError(f"encoder layer kernel: attend {product.name}: heads of width "
+                             f"{n} reach column {reach} of a {limit}-column tile")
+    else:
+        if k % 8 or n % 2:
+            raise ValueError(f"encoder layer kernel: linear {product.name} needs d_in a "
+                             f"multiple of 8 and d_out even, got {k} -> {n}")
+        m_tiles = -(-product.m // BM) * product.batches
+        bn = min(LINEAR_BN, key=lambda w: (-(-m_tiles * -(-n // w) // sms) * (w + 64), w))
+        nw = LINEAR_NW
+    stage = (BM + bn) * BK * 2 + 16
+    return TilePlan(BM, bn, nw, min(MAX_STAGES, (SMEM_LIMIT - 1024) // stage))
+
+
+def head_shift(h, n):
+    """Where head h's n columns start inside its attend tile."""
+    return h * n % 8
+
+
+def epilogue_map(nw, nj):
+    """Mirror of product_kernel's epilogue: the (row, col) inside a BM x
+    (nj * nw) tile of accumulator register i of wgmma chunk j in each of the
+    256 consumer threads, as two [256, nj * nw / 2] tensors (register
+    j * nw / 2 + i). Thread t is lane t % 32 of warp t // 32; warpgroup
+    t // 128 owns rows 64 (t // 128) on, its warps 16 rows each (the m64nNk16
+    accumulator layout)."""
+    t = torch.arange(2 * 128)[:, None]
+    reg = torch.arange(nj * nw // 2)[None, :]
+    j, i = reg // (nw // 2), reg % (nw // 2)
+    warp, lane = t // 32, t % 32
+    row = (warp // 4) * 64 + (warp % 4) * 16 + lane // 4 + 8 * ((i // 2) % 2)
+    col = j * nw + 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return row, col
+
+
+def product_tiles(product, plan):
+    """Mirror of product_kernel's walk: for each tile, in tile order, the
+    output row and column that its first valid element goes to, its valid
+    rows and columns, and the tile column of that first valid element (a
+    self-attention head's head_shift). Outputs: a linear's [m, n]; an
+    attend's [B * m, zdiv * n]."""
+    m_tiles = -(-product.m // plan.bm)
+    n_tiles = 1 if product.attend else -(-product.n // plan.bn)
+    c_rows = product.m if product.attend else 0
+    c_cols = product.n if product.zdiv > 1 else 0
+    tiles = []
+    for tile in range(m_tiles * n_tiles * product.batches):
+        nt, mt = tile % n_tiles, tile // n_tiles % m_tiles
+        z = tile // (n_tiles * m_tiles)
+        z1, z2 = z // product.zdiv, z % product.zdiv
+        m0, n0 = mt * plan.bm, nt * plan.bn
+        shift = head_shift(z2, product.n) if product.zdiv > 1 else 0
+        tiles.append((z1 * c_rows + m0, z2 * c_cols + n0, min(plan.bm, product.m - m0),
+                      min(plan.bn, product.n - n0), shift))
+    return tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(shape, sms):
+    """The kernel's plan argument for one layer shape: a C int array of
+    (bm, bn, nw, stages) for each product in launch order."""
+    flat = [v for p in layer_products(*shape)
+            for v in dataclasses.astuple(tile_plan(p, sms))]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _dot16(a, w):
@@ -164,60 +342,109 @@ def poslin_bf16(rev_pos, w_pos, heads):
         .to(_B16).contiguous()
 
 
-def _encoder_layer_cuda(flat, x, poslin, lens, h, qd, pd, vd):
+class KernelOperands:
+    """A layer's kernel operands on one device, checked once per layout: the
+    42 in the TPU kernel's order (flat, never changed), the K-major copies
+    [d_out, d_in] of its linear weights (flat_t, None at the other slots:
+    the products read W^T through TMA) and the two host arrays of their
+    pointers."""
+
+    def __init__(self, flat):
+        if len(flat) != N_FLAT or flat[28].shape[0] % 2 != 1:
+            raise ValueError("encoder layer kernel: 42 operands, odd conv kernel")
+        self.device = flat[0].device
+        for i, w in enumerate(flat):
+            want = _F32 if i >= 38 else _B16
+            if w.device != self.device or w.dtype != want or not w.is_contiguous():
+                raise ValueError(f"encoder layer kernel: operand {i} must be "
+                                 f"contiguous {want} on {self.device}")
+        self.flat = flat
+        self.flat_t = tuple(w.t().contiguous() if i in LINEAR_WEIGHTS else None
+                            for i, w in enumerate(flat))
+        self.ptrs = (ctypes.c_void_p * N_FLAT)(*[w.data_ptr() for w in flat])
+        self.ptrs_t = (ctypes.c_void_p * N_FLAT)(*[None if w is None else w.data_ptr()
+                                                   for w in self.flat_t])
+
+
+def kernel_operands(layer, flat):
+    """The layer's KernelOperands for flat, its current kernel_layout()
+    operands: rebuilt when the layout is."""
+    cached = getattr(layer, "_kernel_operands", None)
+    if cached is None or cached.flat is not flat:
+        cached = KernelOperands(flat)
+        layer._kernel_operands = cached
+    return cached
+
+
+def _encoder_layer_cuda(ops, x, poslin, lens, h, qd, pd, vd, entry=None):
+    """ops: the layer's KernelOperands. entry: another build's
+    svt_encoder_layer_bf16 with this one's C arguments (chip_smoke.py's A/B
+    against a parent checkout)."""
     global launches
     dev = x.device
-    b, t_pad, d = x.shape
-    hna = flat[2].shape[1] // 3                       # nl_in_w: [D, 3*hna]
-    ff1, ff2, ff3 = flat[14].shape[1], flat[18].shape[1], flat[22].shape[1]
-    ksize = flat[28].shape[0]                         # c1_dw: [K, D]
+    shape = layer_shape(ops.flat, x.shape, h, qd, pd, vd)
+    b, t_pad, d, _, _, _, _, hna, ff1, ff2, ff3 = shape
     if (qd, pd) not in ((32, 4), (16, 4)):
         raise ValueError(f"encoder layer kernel is built for (qd, pd) in "
                          f"((32, 4), (16, 4)), got {(qd, pd)}")
-    if x.dtype != _F32 or not x.is_contiguous():
-        raise ValueError("encoder layer kernel: x must be contiguous float32")
+    if ops.device != dev:
+        raise ValueError(f"encoder layer kernel: operands on {ops.device}, x on {dev}")
+    if x.dtype != _F32 or not x.is_contiguous() or x.data_ptr() % 16 or d % 2:
+        raise ValueError("encoder layer kernel: x must be contiguous float32, "
+                         "16-byte aligned, D even")
     if lens.shape != (b,):
         raise ValueError("encoder layer kernel: lens must be [B]")
     if poslin.dtype != _B16 or poslin.shape[0] != h \
             or poslin.shape[1] < 2 * t_pad - 1 or poslin.shape[2] != pd:
         raise ValueError("encoder layer kernel: poslin must be bf16 "
                          f"[{h}, >= {2 * t_pad - 1}, {pd}]")
-    if len(flat) != N_FLAT or ksize % 2 != 1:
-        raise ValueError("encoder layer kernel: 42 operands, odd conv kernel")
-    for i, w in enumerate(flat):
-        want = _F32 if i >= 38 else _B16
-        if w.device != dev or w.dtype != want or not w.is_contiguous():
-            raise ValueError(f"encoder layer kernel: operand {i} must be "
-                             f"contiguous {want} on {dev}")
     if b * h * t_pad * t_pad >= 2 ** 31 or b * t_pad * 4 * d >= 2 ** 31:
         raise ValueError("encoder layer kernel: shapes exceed int32 indexing")
     m = b * t_pad
     out = torch.empty_like(x)
     if m == 0:
         return out
-    # Workspaces (the C code allocates nothing): the bf16 projection q|k|pq,
-    # the keys-major weights [B, H, T_pad, T_pad], three bf16 activation
-    # buffers and the f32 residual stream.
-    ws_proj = torch.empty((m, h * (2 * qd + pd)), dtype=_B16, device=dev)
-    ws_w = torch.empty((b, h, t_pad, t_pad), dtype=_B16, device=dev)
-    ws_a = torch.empty((m, max(ff1, ff2, ff3, 3 * hna, 2 * d, h * vd)),
-                       dtype=_B16, device=dev)
-    ws_b = torch.empty((m, max(hna, h * vd, d)), dtype=_B16, device=dev)
-    ws_c = torch.empty((m, max(hna, h * vd)), dtype=_B16, device=dev)
-    ws_x = torch.empty((m, d), dtype=_F32, device=dev)
+    # Raises on a shape the product kernel does not take.
+    sms = _multiprocessors(dev.index if dev.index is not None
+                           else torch.cuda.current_device())
+    plan = _plan_array(shape, sms)
+    # Workspaces (the C code allocates nothing), carved from one allocation
+    # on 256-byte boundaries: the bf16 projection q|k|pq, the keys-major
+    # weights [B, H, T_pad, T_pad], three bf16 activation buffers, the f32
+    # residual stream and its bf16 shadow.
+    sizes = (2 * m * h * (2 * qd + pd), 2 * b * h * t_pad * t_pad,
+             2 * m * max(ff1, ff2, ff3, 3 * hna, 2 * d, h * vd), 2 * m * max(hna, h * vd, d),
+             2 * m * max(hna, h * vd), 4 * m * d, 2 * m * d)
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + -(-size // 256) * 256)
+    ws = torch.empty(starts[-1], dtype=torch.uint8, device=dev)
+    ws_proj, ws_w, ws_a, ws_b, ws_c, ws_x, ws_x16 = (ws.data_ptr() + o for o in starts[:-1])
     lens32 = lens.to(device=dev, dtype=torch.int32).contiguous()
-    ptrs = (ctypes.c_void_p * N_FLAT)(*[w.data_ptr() for w in flat])
-    lib = cuda_lib.library()
-    status = lib.svt_encoder_layer_bf16(
+    fn = entry or cuda_lib.library().svt_encoder_layer_bf16
+    status = fn(
         x.data_ptr(), lens32.data_ptr(), poslin.data_ptr(),
-        ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(),
-        ws_proj.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(), ws_b.data_ptr(),
-        ws_c.data_ptr(), ws_x.data_ptr(),
-        b, t_pad, d, h, qd, pd, vd, hna, ff1, ff2, ff3, ksize, poslin.shape[1],
-        cuda_lib.stream(dev))
+        ctypes.cast(ops.ptrs, ctypes.c_void_p), ctypes.cast(ops.ptrs_t, ctypes.c_void_p),
+        ctypes.cast(plan, ctypes.c_void_p), out.data_ptr(),
+        ws_proj, ws_w, ws_a, ws_b, ws_c, ws_x, ws_x16,
+        b, t_pad, d, h, qd, pd, vd, hna, ff1, ff2, ff3, ops.flat[28].shape[0],
+        poslin.shape[1], sms, cuda_lib.stream(dev))
     cuda_lib.check(status, "svt_encoder_layer_bf16")
     launches += 1
     return out
+
+
+def layer_poslin(layer, rev_pos, w_pos):
+    """poslin_bf16 of the layer, kept while rev_pos (the same tensor, not
+    changed in place) and w_pos (from the layer's kernel_layout()) stay: the
+    encoder passes one rev_pos per stack shape, so a layer projects it once,
+    not per call."""
+    cached = getattr(layer, "_poslin", None)
+    if cached is None or cached[0] is not rev_pos or cached[1] != rev_pos._version \
+            or cached[2] is not w_pos:
+        cached = (rev_pos, rev_pos._version, w_pos, poslin_bf16(rev_pos, w_pos, layer.heads))
+        layer._poslin = cached
+    return cached[3]
 
 
 def encoder_layer(layer, x, rev_pos, lens):
@@ -232,12 +459,14 @@ def encoder_layer(layer, x, rev_pos, lens):
     """
     cfg = layer.cfg
     flat, w_pos = layer.kernel_layout()
-    poslin = poslin_bf16(rev_pos, w_pos, layer.heads)
-    args = (flat, x, poslin, lens, layer.heads, cfg.query_head_dim,
+    poslin = layer_poslin(layer, rev_pos, w_pos)
+    args = (x, poslin, lens, layer.heads, cfg.query_head_dim,
             cfg.pos_head_dim, cfg.value_head_dim)
     with torch.no_grad():
         if x.device.type == "cpu":
-            return encoder_layer_plain(*args)
+            return encoder_layer_plain(flat, *args)
         if x.device.type != "cuda":
             raise ValueError(f"encoder_layer: unsupported device {x.device}")
-        return _encoder_layer_cuda(*args)
+        # The host span of one layer (tools/profile_slice reads it).
+        with torch.profiler.record_function("svt_encoder_layer"):
+            return _encoder_layer_cuda(kernel_operands(layer, flat), *args)

@@ -105,10 +105,23 @@ class TranscriberPipeline:
         if (self.config.get("restore_punctuation", False)
                 and not self.config.get("bypass_restorer", False)):
             raise NotImplementedError("punctuation restoration is not ported yet")
+        # An absent key keeps 8; 0, None or a negative value means "auto" in
+        # the JAX package (pipeline/calibration.resolve_max_batch).
+        max_batch = self.config.get("max_batch", 8)
+        if max_batch is None or int(max_batch) <= 0:
+            raise NotImplementedError(
+                f"config max_batch={max_batch!r} asks for automatic batch sizing, "
+                "which needs the calibration report (pipeline/calibration.py): "
+                "not ported yet; pass a positive max_batch")
+        self.max_batch = int(max_batch)
         self.progress_callback = progress_callback
         self.cancel_check = cancel_check
         self.vad_prob_fn = vad_prob_fn
         self._phase_file = str(file_path) + ".asr_phase"
+
+    def _decoder(self, transfer_dtype=None):
+        return BatchedChunkDecoder(self.model, max_batch=self.max_batch,
+                                   transfer_dtype=transfer_dtype)
 
     # -- progress protocol --
     def _emit(self, message: str):
@@ -202,9 +215,7 @@ class TranscriberPipeline:
         transfer_dtype = self.config.get("decode_transfer_dtype")
         if transfer_dtype is None and is_int16_exact(concat_audio):
             transfer_dtype = "int16"
-        decoder = BatchedChunkDecoder(
-            self.model, max_batch=int(self.config.get("max_batch") or 8),
-            transfer_dtype=transfer_dtype)
+        decoder = self._decoder(transfer_dtype)
         spans = [(s, e) for s, e, _ in plan]
         chunk_words = decoder.decode_spans(
             concat_audio, spans, progress_callback=self._emit,

@@ -16,6 +16,10 @@ prints:
   - device busy time (the union of the card's kernel and copy intervals),
     its share of the wall time and the idle share (1 - busy / wall);
   - the device kernels by total time, with each one's share of busy time;
+  - in bfloat16, the whole-layer kernel's device time split into products,
+    score pass, depthwise conv and elementwise passes, and the wrapper's
+    host time per layer (its "svt_encoder_layer" span, under the profiler)
+    against the layer's device time;
   - the warm wall time and real-time factor of a longer request;
   - the card's name and power limit, as nvidia-smi prints them.
 The last line is a JSON object with these numbers.
@@ -34,6 +38,11 @@ import time
 import numpy as np
 
 SR = 16000
+LAYER_SPAN = "svt_encoder_layer"  # ops/encoder_layer's host range around one layer
+# Device kernels of the whole-layer kernel (csrc/encoder_layer.cu) by part.
+LAYER_PARTS = (("products", ("product_kernel",)), ("score pass", ("attn_bf16_kernel",)),
+               ("depthwise conv", ("dwconv_kernel",)),
+               ("elementwise", ("shadow_kernel", "nonlin_gate_kernel", "biasnorm_bypass_kernel")))
 
 
 def am_tone(seconds, seed):
@@ -89,9 +98,17 @@ def _busy_ms(intervals):
 def _device_events(prof):
     import torch
 
+    # kernels and copies; not the device copies of record_function ranges
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith("Activity Buffer")]
+            and not e.name.startswith("Activity Buffer")
+            and not getattr(e, "is_user_annotation", False) and e.name != LAYER_SPAN]
+
+
+def layer_split(per_name):
+    """{part: device ms} of LAYER_PARTS from a {kernel name: ms} map."""
+    return {part: sum(ms for name, ms in per_name.items() if any(k in name for k in keys))
+            for part, keys in LAYER_PARTS}
 
 
 def profile_calls(fn, reps=20):
@@ -172,12 +189,28 @@ def main(argv=None):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[: args.top]
 
     wall_ms = wall * 1e3
+    layer = None
+    spans = [e for e in prof.events()
+             if e.name == LAYER_SPAN and e.device_type == torch.autograd.DeviceType.CPU]
+    if spans:
+        parts = layer_split(per_name)
+        device = sum(parts.values())
+        layer = {"layers": len(spans), "device_ms": parts,
+                 "host_ms_per_layer": sum(e.time_range.elapsed_us() for e in spans)
+                 / 1e3 / len(spans),
+                 "device_ms_per_layer": device / len(spans)}
     print(f"request {args.seconds} s: wall {wall_ms:.3f} ms, "
           f"timing {json.dumps(res['timing'])}")
     print(f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}% of wall), "
           f"idle share {1 - busy / wall_ms:.3f}, {len(events)} device events")
     for name, ms in top:
         print(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  {name[:100]}")
+    if layer:
+        print(f"whole-layer kernel: {layer['layers']} layers, device "
+              f"{sum(layer['device_ms'].values()):.3f} ms: " + ", ".join(
+                  f"{part} {ms:.3f} ms" for part, ms in layer["device_ms"].items()))
+        print(f"whole-layer kernel per layer: host {layer['host_ms_per_layer']:.3f} ms "
+              f"(wrapper span) vs device {layer['device_ms_per_layer']:.3f} ms")
     print(f"request {args.long_seconds} s warm: wall {long_wall:.3f} s, "
           f"{args.long_seconds / long_wall:.1f}x real time")
     smi = subprocess.run(
@@ -188,7 +221,7 @@ def main(argv=None):
         "card": smi, "dtype": args.dtype, "request_s": args.seconds, "wall_ms": wall_ms,
         "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "timing": res["timing"],
-        "top_kernels_ms": {name: ms for name, ms in top},
+        "top_kernels_ms": {name: ms for name, ms in top}, "layer_kernel": layer,
         "long_request_s": args.long_seconds, "long_wall_s": long_wall}))
 
 

@@ -324,3 +324,138 @@ def test_cpu_tensor_runs_plain_twin_without_launch(monkeypatch):
     with torch.no_grad():
         layer.ff1.in_proj.weight.add_(1.0)
     assert layer.kernel_layout()[0] is not flat
+
+
+# ---------------------------------------------------------------------------
+# The product kernel's host-side contract (csrc/encoder_layer.cu
+# product_kernel): tile plans and the epilogue's register map, at the six
+# Zipformer-30M stack shapes (B 8, 33 s chunks) and the TINY shape above.
+
+def _stack_shape(stack):
+    cfg = tz.ZIPFORMER_30M
+    d, ff = cfg.encoder_dim[stack], cfg.ffn_dim[stack]
+    t_pad = -(-(1646, 823, 412, 206, 412, 823)[stack] // el.R) * el.R
+    return (8, t_pad, d, cfg.num_heads[stack], cfg.query_head_dim, cfg.pos_head_dim,
+            cfg.value_head_dim, 3 * d // 4, ff * 3 // 4, ff, ff * 5 // 4)
+
+
+LAYER_SHAPES = {f"stack{s}": _stack_shape(s) for s in range(6)}
+LAYER_SHAPES["tiny"] = (len(LAYER_LENS), LAYER_TP, 64, 2, 16, 4, 8, 48, 72, 96, 120)
+
+
+def _planned(shape):
+    products = el.layer_products(*shape)
+    return [(p, el.tile_plan(p, sms=132)) for p in products]
+
+
+@pytest.mark.parametrize("shape", LAYER_SHAPES.values(), ids=LAYER_SHAPES.keys())
+def test_tile_plan_meets_the_kernels_constraints(shape):
+    """Every product's plan fits wgmma (64-row warpgroup tiles, width 64 for
+    a linear and 16 for an attend, at most 256 columns and 128 accumulators
+    a thread), TMA (16-byte
+    global strides and box starts, 128- or 32-byte swizzled inner boxes) and
+    shared memory (a ring of at least 3 stages in 227 KB, tiles on 1024-byte
+    swizzle atoms); its column tiles cover the product's columns."""
+    b, t_pad, d, h, qd, pd, vd, hna = shape[:8]
+    planned = _planned(shape)
+    assert [p.name for p, _ in planned][:4] == ["attn_in", "ff1_in", "ff1_out", "nonlin_in"]
+    assert len(planned) == 20 and sum(p.attend for p, _ in planned) == 3
+    for p, pl in planned:
+        assert pl.bm == el.BM == 2 * 64
+        assert pl.nw == (el.ATTEND_NW if p.attend else el.LINEAR_NW)
+        assert pl.bn % pl.nw == 0 and pl.bn % 8 == 0
+        assert 0 < pl.bn <= max(el.LINEAR_BN) and pl.bn // 2 <= 128
+        assert 3 <= pl.stages <= el.MAX_STAGES and pl.smem_bytes <= el.SMEM_LIMIT
+        assert (pl.bm * el.BK * 2) % 1024 == 0 and (pl.bn * el.BK * 2) % 1024 == 0
+        assert p.n % 2 == 0 and p.k % 8 == 0
+        if shape != LAYER_SHAPES["tiny"]:
+            assert p.k % 16 == 0
+        if p.attend:
+            width = p.zdiv * p.n  # the value buffer's row: H vd or hna
+            assert p.m == p.k == t_pad and p.batches == b * p.zdiv
+            assert pl.nw == 16 and pl.bn <= (16 if p.zdiv > 1 else 192)
+            for head in range(p.zdiv):
+                start = head * p.n - el.head_shift(head, p.n)
+                assert start % 8 == 0 and start >= 0          # box starts 16-byte aligned
+                assert el.head_shift(head, p.n) + p.n <= pl.bn
+            strides = (2 * t_pad, 2 * t_pad * t_pad, 2 * width, 2 * t_pad * width)
+            inner = (64 * 2, 16 * 2)                           # 128- and 32-byte swizzle
+        else:
+            assert p.m == b * t_pad and p.batches == 1 and pl.bn in el.LINEAR_BN
+            n_tiles = -(-p.n // pl.bn)
+            assert (n_tiles - 1) * pl.bn < p.n <= n_tiles * pl.bn
+            strides = (2 * p.k,)                               # A [M, K] and W^T [N, K]
+            inner = (el.BK * 2,)
+        assert all(s % 16 == 0 for s in strides)
+        assert all(16 <= i <= 128 for i in inner)
+    widths = {p.name: p.n for p, _ in planned}
+    assert widths["attn_in"] == h * (2 * qd + pd) and widths["sa1_in"] == h * vd
+    assert widths["nonlin_in"] == 3 * hna and widths["conv1_in"] == 2 * d
+
+
+@pytest.mark.parametrize("shape", LAYER_SHAPES.values(), ids=LAYER_SHAPES.keys())
+def test_epilogue_map_covers_each_output_once(shape):
+    """The mirror of the epilogue's m64nNk16 register map sends the 256
+    consumer threads' accumulators onto each element of a 128 x bn tile
+    exactly once, in whole column pairs (the bf16x2 / float2 stores), each
+    warpgroup on its own 64 rows; the tiles' valid parts (rows < M, a
+    head's shifted columns) cover each output element of every product
+    exactly once."""
+    planned = _planned(shape)
+    for nw, nj in {(pl.nw, pl.bn // pl.nw) for _, pl in planned}:
+        rows, cols = el.epilogue_map(nw, nj)
+        bn = nw * nj
+        assert rows.shape == (256, bn // 2)
+        hits = torch.bincount((rows * bn + cols).flatten(), minlength=128 * bn)
+        assert hits.shape == (128 * bn,) and bool((hits == 1).all())
+        assert torch.equal(rows[:, 0::2], rows[:, 1::2])
+        assert torch.equal(cols[:, 1::2], cols[:, 0::2] + 1) and bool((cols % 2 == 0)[:, 0::2].all())
+        assert bool(((rows // 64) == (torch.arange(256) // 128)[:, None]).all())
+    b, t_pad = shape[:2]
+    for p, pl in planned:
+        out_rows = b * t_pad
+        out_cols = p.zdiv * p.n
+        count = np.zeros((out_rows, out_cols), np.int8)
+        for r0, c0, nrows, ncols, shift in el.product_tiles(p, pl):
+            assert 0 < nrows <= pl.bm and 0 < ncols and shift + ncols <= pl.bn
+            count[r0:r0 + nrows, c0:c0 + ncols] += 1
+        assert (count == 1).all(), p.name
+
+
+def test_tile_plan_raises_on_shapes_the_kernel_cannot_take():
+    """A shape outside the kernel's plans raises in the wrapper (it never
+    falls back): a value head wider than its 16-column tile, a nonlin
+    attention wider than 192, a linear's depth off the 16-byte TMA stride."""
+    shape = LAYER_SHAPES["tiny"]
+    wide_heads = shape[:6] + (20,) + shape[7:]
+    with pytest.raises(ValueError, match="sa1_attend"):
+        _planned(wide_heads)
+    wide_nonlin = shape[:7] + (200,) + shape[8:]
+    with pytest.raises(ValueError, match="nonlin_attend"):
+        _planned(wide_nonlin)
+    odd_ff = shape[:8] + (76,) + shape[9:]
+    with pytest.raises(ValueError, match="ff1_out"):
+        _planned(odd_ff)
+
+
+def test_kernel_operands_hold_the_k_major_copies():
+    """The products read each linear weight as its K-major copy [d_out,
+    d_in], kept with the layer's operands and rebuilt with its
+    kernel_layout(); the 42 operands stay in the TPU kernel's layout."""
+    cfg = tz.ZipformerConfig(**TINY)
+    torch.manual_seed(1)
+    layer = tz.ZipformerLayer(64, 96, 2, 15, cfg)
+    flat, _ = layer.kernel_layout()
+    ops = el.kernel_operands(layer, flat)
+    assert ops.flat is flat and el.kernel_operands(layer, flat) is ops
+    wt = ops.flat_t
+    assert [i for i, w in enumerate(wt) if w is not None] == list(el.LINEAR_WEIGHTS)
+    for i in el.LINEAR_WEIGHTS:
+        assert wt[i].is_contiguous() and torch.equal(wt[i], flat[i].t())
+    assert torch.equal(wt[0], layer.attn_in_proj.weight.to(torch.bfloat16))
+    assert list(ops.ptrs) == [w.data_ptr() for w in flat]
+    with torch.no_grad():
+        layer.conv2.out_proj.weight.mul_(2.0)
+    flat2, _ = layer.kernel_layout()
+    again = el.kernel_operands(layer, flat2)
+    assert again is not ops and torch.equal(again.flat_t[36], flat2[36].t())

@@ -190,6 +190,31 @@ def test_unported_stages_raise(config, model_pair):
                             config=config)
 
 
+@pytest.mark.parametrize("max_batch", [0, None, -1, "absent", 4])
+def test_max_batch_auto_raises_and_explicit_is_kept(max_batch):
+    """0, None or a negative max_batch asks for the reference's automatic
+    sizing (calibration, not ported): it raises. An absent key gives a
+    decoder of batch 8, a positive value that batch."""
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import (
+        TINY_ZIPFORMER, random_asr_model,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import (
+        TranscriberPipeline,
+    )
+
+    m = random_asr_model(vocab_size=20, zip_cfg=TINY_ZIPFORMER, beam_size=2,
+                         device="cpu")
+    config = {"bypass_vad": True}
+    if max_batch != "absent":
+        config["max_batch"] = max_batch
+    if max_batch in (0, None, -1):
+        with pytest.raises(NotImplementedError, match="calibration"):
+            TranscriberPipeline("unused.wav", m, config=config)
+        return
+    pipe = TranscriberPipeline("unused.wav", m, config=config)
+    assert pipe._decoder().max_batch == (8 if max_batch == "absent" else 4)
+
+
 def test_int16_upload_gives_the_float32_features():
     """Audio decoded from 16-bit PCM uploads as int16 losslessly."""
     from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import fbank_batch
