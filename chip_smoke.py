@@ -19,8 +19,11 @@ Phases (any failure raises and the script exits non-zero):
      (products, score pass, depthwise conv, elementwise), the products'
      TFLOP/s and cuBLAS's time for the same 20 products; the beam kernel
      with and without a hotword table, and at vocab 1999 with ties planted
-     across its vocab slices; with --parent DIR, the beam and layer kernels
-     of the checkout in DIR timed against these in turns);
+     across its vocab slices; the bf16-band attention kernel at the
+     attention shapes, where kernel 2's twin (the band unrounded) must fail
+     its gate; with --parent DIR, the attention, beam and layer kernels of
+     the checkout in DIR timed against these in turns, the attention
+     kernel's output bit-identical);
   4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
      three WAV files with a random-weight Zipformer-30M model (vocab 2000,
      beam 8, float32), checking the result contract and that every kernel of
@@ -28,7 +31,10 @@ Phases (any failure raises and the script exits non-zero):
   5. bfloat16 slice: the same entry point with the bfloat16 Zipformer-30M
      (same weights) carrying a hotword table, on two files; the whole-layer
      kernel and the hotword beam must run, and the bf16 encoder output must
-     agree with the float32 encoder's on one batch (cosine >= 0.99).
+     agree with the float32 encoder's on one batch (cosine >= 0.99);
+  6. bf16-band probe: tools/skew_bf16 at the probe's three stack shapes
+     (kernel 2 against the bf16-band kernel: times, drift, each against its
+     twin); the bf16-band kernel must run.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks); the last line is
@@ -332,22 +338,21 @@ def check_fbank(dev):
             "replaces": "sherpa_vietnamese_asr_tpu/ops/fbank.py:149", **summary}
 
 
-def check_attention(dev, model):
+def attention_inputs(dev, model):
+    """(stack, t, h, lens_list, args) at each ATTN_SHAPES shape: layer 0's
+    own projections of x ~ N(0, 1), batch 8, mixed lens (0 among them)."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.models.zipformer import compact_rel_pos_emb
-    from sherpa_vietnamese_asr_tpu_torch.ops import attention
 
-    out = None
     gen = torch.Generator(device="cpu").manual_seed(1)
+    cfg = model.zip_cfg
+    qd, pd = cfg.query_head_dim, cfg.pos_head_dim
     for stack, t, h in ATTN_SHAPES:
         layer = model.encoder.stacks[stack].layers[0]
-        cfg = model.zip_cfg
-        d = cfg.encoder_dim[stack]
-        x = torch.randn((SLICE_BATCH, t, d), generator=gen).to(dev)
+        x = torch.randn((SLICE_BATCH, t, cfg.encoder_dim[stack]), generator=gen).to(dev)
         lens_list = [t, t // 2, 0, 64, 1, (3 * t) // 4, t, 17]
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-        qd, pd = cfg.query_head_dim, cfg.pos_head_dim
         with torch.no_grad():
             proj = layer.attn_in_proj(x)
         q = proj[..., : h * qd].reshape(SLICE_BATCH, t, h, qd)
@@ -355,43 +360,132 @@ def check_attention(dev, model):
         pq = proj[..., 2 * h * qd:].reshape(SLICE_BATCH, t, h, pd)
         wpos = layer.attn_pos_proj.weight.detach().t()
         pos = torch.from_numpy(compact_rel_pos_emb(t, cfg.pos_dim)).to(dev)
-        args = (q, k, pq, wpos, pos, lens)
+        yield stack, t, h, lens_list, (q, k, pq, wpos, pos, lens)
+
+
+def attention_gate(got, ref, lens_list):
+    """(max abs error over valid keys and queries, largest |key sum - 1|,
+    largest ratio to the bf16 bound) of kernel weights `got` against a twin;
+    asserts the uniform rows of lens-0 chunks.
+
+    Every weight (masked keys and padded queries included) must be the
+    twin's rounded to bf16: unit roundoff 2**-8, plus 2**-12 of float32
+    slack for the recomputed scores. A skew off by one row, or a rel-pos
+    term 1% off (max abs error still under 2e-2), exceeds this bound many
+    times over."""
+    t = got.shape[-1]
+    err, sum_err = 0.0, 0.0
+    for i, ln in enumerate(lens_list):
+        if ln == 0:
+            uni = float((got[i] - 1.0 / t).abs().max())
+            assert uni < 2e-2 and got[i].isfinite().all(), "lens=0 row"
+            continue
+        err = max(err, float((got[i, :, :ln, :ln] - ref[i, :, :ln, :ln]).abs().max()))
+        sum_err = max(sum_err, float((got[i, :, :, :ln].sum(-2) - 1.0).abs().max()))
+    rel = float(((got - ref).abs() / ((2**-8 + 2**-12) * ref.abs() + 1e-6)).max())
+    return err, sum_err, rel
+
+
+def attention_bound(args):
+    """Inputs read once, the [B, H, T, T] bf16 weights written once; the
+    content and position products (2 (qd + pd) a weight, fp32 inputs), 4 more
+    a weight for the softmax, and the position projection."""
+    q, _, pq, wpos = args[:4]
+    b, t, h, qd = q.shape
+    flops = b * h * t * t * (2 * (qd + pq.shape[-1]) + 4) + 2 * (2 * t - 1) * wpos.numel()
+    return bound(nbytes(*args) + b * h * t * t * 2, flops, PEAK_FP32)
+
+
+def check_attention(dev, model, parent=None):
+    """Kernel 2 against its twin at ATTN_SHAPES; with a parent checkout, its
+    kernel 2 on the same inputs, bit-identical, timed in turns."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention
+
+    out = None
+    for stack, t, h, lens_list, args in attention_inputs(dev, model):
         got = attention.attention_weights(*args).float()
         ref = attention.attention_weights_plain(*args)
         torch.cuda.synchronize()
-        err, sum_err = 0.0, 0.0
-        for i, ln in enumerate(lens_list):
-            if ln == 0:
-                uni = float((got[i] - 1.0 / t).abs().max())
-                assert uni < 2e-2 and torch.isfinite(got[i]).all(), "lens=0 row"
-                continue
-            err = max(err, float((got[i, :, :ln, :ln] - ref[i, :, :ln, :ln]).abs().max()))
-            sum_err = max(sum_err, float((got[i, :, :, :ln].sum(-2) - 1.0).abs().max()))
-        # Every weight (masked keys and padded queries included) must be the
-        # twin's rounded to bf16: unit roundoff 2**-8, plus 2**-12 of float32
-        # slack for the recomputed scores. A skew off by one row, or a
-        # rel-pos term 1% off (max abs error still under 2e-2), exceeds this
-        # bound many times over.
-        rel = float(((got - ref).abs() / ((2**-8 + 2**-12) * ref.abs() + 1e-6)).max())
+        err, sum_err, rel = attention_gate(got, ref, lens_list)
         del got, ref
         ms = time_ms(lambda: attention.attention_weights(*args))
         plain_ms = time_ms(lambda: attention.attention_weights_plain(*args))
-        # Inputs read once, the [B, H, T, T] bf16 weights written once; the
-        # content and position products (2 (qd + pd) a weight, fp32 inputs),
-        # 4 more a weight for the softmax, and the position projection.
-        flops = (SLICE_BATCH * h * t * t * (2 * (qd + pd) + 4)
-                 + 2 * (2 * t - 1) * wpos.shape[0] * wpos.shape[1])
-        bnd = bound(nbytes(*args) + SLICE_BATCH * h * t * t * 2, flops, PEAK_FP32)
+        bnd = attention_bound(args)
         log(f"attention: stack {stack} B {SLICE_BATCH} T {t} H {h} lens {lens_list} "
             f"max_abs {err:.3e} key_sum_err {sum_err:.3e} bf16_bound_ratio {rel:.4f} "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']})")
         assert err < 2e-2 and sum_err < 2e-2, "attention parity"
         assert rel <= 1.0, "attention parity: beyond bf16 rounding of the twin"
+        if parent is not None:
+            attention_ab(stack, args, parent["attention"])
         if out is None:  # the stack-0 shape is the one the summary reports
             out = {"name": "attention_weights",
                    "source": "sherpa_vietnamese_asr_tpu_torch/csrc/attention_weights.cu",
                    "replaces": "sherpa_vietnamese_asr_tpu/ops/attention.py:35",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, **bnd}
+    return out
+
+
+def attention_ab(stack, args, entry):
+    """The parent checkout's kernel 2 against this one on the same inputs:
+    the outputs must be bit-identical; timed in turns (parent, this, this,
+    parent)."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention
+
+    def run(fn):
+        return lambda: attention._attention_weights_cuda(*args, entry=fn)
+
+    same = torch.equal(run(entry)(), run(None)())
+    turns = [time_ms(run(fn)) for fn in (entry, None, None, entry)]
+    log(f"attention A/B stack {stack}: parent {turns[0]:.3f} / {turns[3]:.3f} ms, this "
+        f"{turns[1]:.3f} / {turns[2]:.3f} ms (parent, this, this, parent); "
+        f"outputs bit-identical {same}")
+    assert same, f"attention A/B stack {stack}: kernel 2 differs from the parent's"
+
+
+def check_attention_bf16band(dev, model):
+    """The bf16-band kernel against its twin at ATTN_SHAPES, inside kernel 2's
+    gate; kernel 2's twin (the band left in float32) must fail that gate.
+    Then kernel 5 and kernel 2 timed in turns, with their device times."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention
+    from sherpa_vietnamese_asr_tpu_torch.tools import skew_bf16
+
+    out = None
+    for stack, t, h, lens_list, args in attention_inputs(dev, model):
+        got = attention.attention_weights_bf16band(*args).float()
+        ref = attention.attention_weights_bf16band_plain(*args)
+        torch.cuda.synchronize()
+        err, sum_err, rel = attention_gate(got, ref, lens_list)
+        del ref
+        _, _, fault_rel = attention_gate(got, attention.attention_weights_plain(*args),
+                                         lens_list)
+        del got
+        turns, device = skew_bf16.kernel_times(args, rounds=7)
+        ms = turns["attention_weights_bf16band"]
+        plain_ms = time_ms(lambda: attention.attention_weights_bf16band_plain(*args))
+        bnd = attention_bound(args)
+        log(f"attention bf16band: stack {stack} B {SLICE_BATCH} T {t} H {h} lens {lens_list} "
+            f"max_abs {err:.3e} key_sum_err {sum_err:.3e} bf16_bound_ratio {rel:.4f}; "
+            f"planted fault band_unrounded (kernel 2's twin) ratio {fault_rel:.4f}; "
+            f"kernel {ms:.3f} ms (device {device['attention_weights_bf16band']:.4f} ms), "
+            f"kernel 2 in turns {turns['attention_weights']:.3f} ms (device "
+            f"{device['attention_weights']:.4f} ms), plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        assert err < 2e-2 and sum_err < 2e-2, "attention bf16band parity"
+        assert rel <= 1.0, "attention bf16band parity: beyond bf16 rounding of the twin"
+        assert fault_rel > 1.0, "planted fault band_unrounded passes the gate"
+        if out is None:
+            out = {"name": "attention_weights_bf16band",
+                   "source": "sherpa_vietnamese_asr_tpu_torch/csrc/attention_weights.cu",
+                   "replaces": "benchmarks/_skewbf16.py:33",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": None, **bnd}
     return out
@@ -445,12 +539,13 @@ def beam_bound(enc, lens, decoder, joiner, cfg, beam, tables=None):
 
 
 def parent_entries(parent):
-    """{"beam": svt_beam_search, "layer": svt_encoder_layer_bf16} of the
-    checkout at `parent`, each built alone from its csrc/ source into
-    build/parent_kernels/ with the parent's nvcc flags, the two nvcc started
-    together. Each entry point carries the parent's own argtypes (its
-    cuda_lib.SIGNATURES): the beam kernel's arguments are this one's, the
-    layer kernel's may not be (parent_layer)."""
+    """{"attention": svt_attention_weights, "beam": svt_beam_search, "layer":
+    svt_encoder_layer_bf16} of the checkout at `parent`, each built alone
+    from its csrc/ source into build/parent_kernels/ with the parent's nvcc
+    flags, the three nvcc started together. Each entry point carries the
+    parent's own argtypes (its cuda_lib.SIGNATURES): the attention and beam
+    kernels' arguments are this one's, the layer kernel's may not be
+    (parent_layer)."""
     import ctypes
     from pathlib import Path
 
@@ -464,7 +559,8 @@ def parent_entries(parent):
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     jobs = {}
-    for name, src, symbol in (("beam", "beam_search.cu", "svt_beam_search"),
+    for name, src, symbol in (("attention", "attention_weights.cu", "svt_attention_weights"),
+                              ("beam", "beam_search.cu", "svt_beam_search"),
                               ("layer", "encoder_layer.cu", "svt_encoder_layer_bf16")):
         lib = out_dir / f"lib{name}.so"
         cmd = [cuda_lib.find_nvcc(), *theirs["NVCC_FLAGS"], "-o", str(lib),
@@ -480,8 +576,8 @@ def parent_entries(parent):
         fn.argtypes = theirs["SIGNATURES"][symbol]
         fn.restype = ctypes.c_int
         fns[name] = fn
-    log(f"parent kernels: built {pkg / 'csrc'} beam_search.cu and encoder_layer.cu in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"parent kernels: built {pkg / 'csrc'} attention_weights.cu, beam_search.cu and "
+        f"encoder_layer.cu in {time.perf_counter() - t0:.1f} s")
     return fns
 
 
@@ -1002,10 +1098,26 @@ def phase_slice_bf16(dev, model16, model32, tmp):
     return launches
 
 
+def phase_probe():
+    """The bf16-band probe path: tools/skew_bf16 at the probe's three stack
+    shapes; every kernel within its twin's gate, kernel 5 launched."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention
+    from sherpa_vietnamese_asr_tpu_torch.tools import skew_bf16
+
+    attention.launches = attention.bf16band_launches = 0
+    rows = skew_bf16.run(skew_bf16.STACKS)
+    launches = {"attention_weights_bf16band": attention.bf16band_launches}
+    log(f"probe launches: {launches} (attention kernel {attention.launches})")
+    assert all(row["ok"] for row in rows), "probe: a kernel beyond its twin's gate"
+    assert all(n > 0 for n in launches.values()), "a kernel never ran in the probe"
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose beam and layer kernels are timed against these")
+                    help="a checkout whose attention, beam and layer kernels are timed "
+                         "against these")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "sherpa_vietnamese_asr_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1030,18 +1142,23 @@ def main(argv=None):
     model16.hotword_tables = tables
     log(f"models: Zipformer-30M random (seed 0), float32 and bfloat16 (hotword table "
         f"S {tables.next_state.shape[0]}) on {dev} in {time.perf_counter() - t0:.1f} s")
-    kernels = [check_fbank(dev), check_attention(dev, model), check_beam(dev, model, parent),
-               check_encoder_layer(dev, model16, parent),
-               check_beam_hotwords(dev, model16, tables, parent)]
+    kernels = [check_fbank(dev), check_attention(dev, model, parent),
+               check_beam(dev, model, parent), check_encoder_layer(dev, model16, parent),
+               check_beam_hotwords(dev, model16, tables, parent),
+               check_attention_bf16band(dev, model)]
     log("PHASE kernel parity ok")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)
         log("PHASE slice ok")
         launches_bf16 = phase_slice_bf16(dev, model16, model, tmp)
     log("PHASE slice bf16 ok")
-    for k in kernels:
+    launches_probe = phase_probe()
+    log("PHASE probe bf16band ok")
+    paths = (launches, launches_bf16, launches_probe)
+    for k in kernels:  # each kernel's count from the first path that runs it
         k["route"] = "cuda"
-        k["launches"] = launches.get(k["name"]) or launches_bf16[k["name"]]
+        k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)
+    assert all(k["launches"] > 0 for k in kernels), "a kernel ran on no path"
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))

@@ -24,6 +24,19 @@
 // sum; pass 2 recomputes and writes bf16(exp(x - max) / sum) to out[bh, s, t]:
 // neighbouring threads write neighbouring t, so every store of the keys-major
 // output is coalesced.
+//
+// The BAND_BF16 instantiation (entry svt_attention_weights_bf16band) replaces
+// benchmarks/_skewbf16.py _attn_kernel_t_bf16band (launcher
+// attn_weights_bf16band), a measurement probe of the TPU kernel above that
+// cast its band to bf16 before the rolls, to halve their VMEM traffic. Here
+// the rolls are an index, so what is left is its function: every position
+// score pq[t].pos[j] rounded to bf16 (nearest even) and widened back before
+// the content score is added. The band is summed over PD in one fixed order
+// with rounded products and adds (__fmul_rn, __fadd_rn: no contraction into
+// fma), as the plain twin sums it, so both round the same float32 value. The
+// score lambda serves both passes, so the max, the sum and the weights all
+// see the rounded score. Same bound and same work as kernel 2, plus two
+// conversions a score.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +48,7 @@ constexpr int kQueries = 128;  // threads (queries) per block
 constexpr int kKeys = 64;      // keys per shared-memory tile
 constexpr float kMasked = -1e9f;
 
-template <int QD, int PD>
+template <int QD, int PD, bool BAND_BF16>
 __global__ void __launch_bounds__(kQueries)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ pq, const float* __restrict__ pos,
@@ -83,10 +96,19 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < QD; ++d) acc = fmaf(qr[d], s_k[si][d], acc);
-    float pacc = 0.f;
     const int r = si + (kQueries - 1 - tid);
+    float pacc;
+    if constexpr (BAND_BF16) {
+      pacc = __fmul_rn(pr[0], s_pos[r][0]);
 #pragma unroll
-    for (int d = 0; d < PD; ++d) pacc = fmaf(pr[d], s_pos[r][d], pacc);
+      for (int d = 1; d < PD; ++d)
+        pacc = __fadd_rn(pacc, __fmul_rn(pr[d], s_pos[r][d]));
+      pacc = __bfloat162float(__float2bfloat16_rn(pacc));
+    } else {
+      pacc = 0.f;
+#pragma unroll
+      for (int d = 0; d < PD; ++d) pacc = fmaf(pr[d], s_pos[r][d], pacc);
+    }
     return acc + pacc;
   };
 
@@ -123,14 +145,27 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int QD, int PD>
+template <int QD, int PD, bool BAND_BF16>
 cudaError_t launch(const float* q, const float* k, const float* pq,
                    const float* pos, const int* lens, __nv_bfloat16* out,
                    int B, int H, int T, cudaStream_t stream) {
   dim3 grid((T + kQueries - 1) / kQueries, B * H);
-  attn_kernel<QD, PD><<<grid, kQueries, 0, stream>>>(q, k, pq, pos, lens, out,
-                                                      H, T);
+  attn_kernel<QD, PD, BAND_BF16><<<grid, kQueries, 0, stream>>>(
+      q, k, pq, pos, lens, out, H, T);
   return cudaGetLastError();
+}
+
+template <bool BAND_BF16>
+int dispatch(const float* q, const float* k, const float* pq, const float* pos,
+             const int* lens, void* out, int B, int H, int T, int qd, int pd,
+             void* stream) {
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  auto st = (cudaStream_t)stream;
+  if (qd == 32 && pd == 4)
+    return (int)launch<32, 4, BAND_BF16>(q, k, pq, pos, lens, o, B, H, T, st);
+  if (qd == 16 && pd == 4)
+    return (int)launch<16, 4, BAND_BF16>(q, k, pq, pos, lens, o, B, H, T, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -139,11 +174,14 @@ extern "C" int svt_attention_weights(const float* q, const float* k,
                                      const float* pq, const float* pos,
                                      const int* lens, void* out, int B, int H,
                                      int T, int qd, int pd, void* stream) {
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  auto st = (cudaStream_t)stream;
-  if (qd == 32 && pd == 4)
-    return (int)launch<32, 4>(q, k, pq, pos, lens, o, B, H, T, st);
-  if (qd == 16 && pd == 4)
-    return (int)launch<16, 4>(q, k, pq, pos, lens, o, B, H, T, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, pq, pos, lens, out, B, H, T, qd, pd, stream);
+}
+
+// The same arguments; the position scores rounded to bf16 before the add.
+extern "C" int svt_attention_weights_bf16band(const float* q, const float* k,
+                                              const float* pq, const float* pos,
+                                              const int* lens, void* out, int B,
+                                              int H, int T, int qd, int pd,
+                                              void* stream) {
+  return dispatch<true>(q, k, pq, pos, lens, out, B, H, T, qd, pd, stream);
 }

@@ -10,6 +10,13 @@
 #   pq[t] . pos_lin[s + T - 1 - t],  pos_lin = reversed(pos_emb) @ W_pos,
 # which the plain twin realigns with the Transformer-XL skew (pad, flatten,
 # slice) and the kernel reads by index.
+#
+# attention_weights_bf16band() is the port of benchmarks/_skewbf16.py
+# _attn_kernel_t_bf16band, a measurement probe: the same function with every
+# position score (summed in float32) rounded to bf16 before the content score
+# is added. Its twin is attention_weights_bf16band_plain, its kernel the
+# BAND_BF16 instantiation of csrc/attention_weights.cu; no model path calls it
+# (tools/skew_bf16.py times it against attention_weights()).
 
 from __future__ import annotations
 
@@ -17,8 +24,10 @@ import torch
 
 from sherpa_vietnamese_asr_tpu_torch.ops import cuda_lib
 
-# Kernel launches of attention_weights() on CUDA tensors.
+# Kernel launches of attention_weights() and attention_weights_bf16band()
+# on CUDA tensors.
 launches = 0
+bf16band_launches = 0
 
 _KERNEL_HEAD_DIMS = ((32, 4), (16, 4))  # (query_head_dim, pos_head_dim) built
 
@@ -29,6 +38,23 @@ def _pos_lin(pos_proj_weight, pos_emb, heads, dtype):
     return pos.reshape(pos_emb.shape[0], heads, -1)
 
 
+def _skew(pos_full):
+    """[B, H, T, 2T-1] -> [B, H, T, T]: y[..., t, s] = pos_full[..., t, s + (T-1-t)]."""
+    b, h, t, _ = pos_full.shape
+    padded = torch.nn.functional.pad(pos_full, (0, 1))
+    flat = padded.reshape(b, h, 2 * t * t)[:, :, t - 1: t - 1 + t * (2 * t - 1)]
+    return flat.reshape(b, h, t, 2 * t - 1)[..., :t]
+
+
+def _masked_softmax(scores, lens):
+    """[B, H, T, S] float32 scores -> [B, H, S, T] keys-major weights; keys
+    s >= lens[b] masked to -1e9 (all keys masked -> uniform 1/T)."""
+    t = scores.shape[-1]
+    mask = torch.arange(t, device=scores.device)[None, :] >= lens[:, None]
+    scores = scores.masked_fill(mask[:, None, None, :], -1e9)
+    return torch.softmax(scores, dim=-1).transpose(2, 3)
+
+
 def attention_weights_plain(q, k, pq, pos_proj_weight, pos_emb, lens,
                             pos_dtype=torch.float32):
     """Plain twin: [B, H, S, T] keys-major weights (float32).
@@ -37,22 +63,43 @@ def attention_weights_plain(q, k, pq, pos_proj_weight, pos_emb, lens,
     pos_emb: [2T-1, pos_dim] (natural order); lens: [B] valid keys.
     pos_dtype rounds the position scores like the JAX package's pos_dtype.
     """
-    b, t, h, _ = q.shape
+    h = q.shape[2]
     scores = torch.einsum("bthd,bshd->bhts", q, k)
     pos_lin = _pos_lin(pos_proj_weight, pos_emb, h, pos_dtype)
     pos_full = torch.einsum("bthd,rhd->bhtr", pq.to(pos_dtype), pos_lin)
-    # skew: y[..., t, s] = pos_full[..., t, s + (T-1-t)]
-    padded = torch.nn.functional.pad(pos_full, (0, 1))
-    flat = padded.reshape(b, h, 2 * t * t)[:, :, t - 1: t - 1 + t * (2 * t - 1)]
-    pos_scores = flat.reshape(b, h, t, 2 * t - 1)[..., :t]
-    scores = (scores + pos_scores).to(torch.float32)
-    mask = torch.arange(t, device=q.device)[None, :] >= lens[:, None]
-    scores = scores.masked_fill(mask[:, None, None, :], -1e9)
-    return torch.softmax(scores, dim=-1).transpose(2, 3)
+    return _masked_softmax((scores + _skew(pos_full)).to(torch.float32), lens)
 
 
-def _attention_weights_cuda(q, k, pq, pos_proj_weight, pos_emb, lens):
-    global launches
+def attention_weights_bf16band_plain(q, k, pq, pos_proj_weight, pos_emb, lens):
+    """Plain twin of the bf16-band kernel: attention_weights_plain in float32
+    with every position score rounded to bf16 (nearest even) before the
+    content score is added. Not pos_dtype=torch.bfloat16, which rounds the
+    position table and pq and computes the band in bf16: here the inputs stay
+    float32 and the band's float32 result is rounded.
+
+    The band is summed over pos_head_dim left to right, one rounded product
+    and one rounded add a term, as the kernel sums it (no fused multiply-add),
+    so both round the same float32 value to bf16.
+    """
+    h = q.shape[2]
+    f32 = torch.float32
+    scores = torch.einsum("bthd,bshd->bhts", q.to(f32), k.to(f32))
+    pos_lin = _pos_lin(pos_proj_weight.to(f32), pos_emb.to(f32), h, f32)
+    pqh = pq.to(f32).permute(0, 2, 1, 3)[:, :, :, None, :]  # [B, H, T, 1, pd]
+    rows = pos_lin.permute(1, 0, 2)[None, :, None]           # [1, H, 1, 2T-1, pd]
+    band = pqh[..., 0] * rows[..., 0]
+    for d in range(1, pq.shape[-1]):
+        band = band + pqh[..., d] * rows[..., d]
+    band = band.to(torch.bfloat16).to(f32)
+    return _masked_softmax(scores + _skew(band), lens)
+
+
+def _attention_weights_cuda(q, k, pq, pos_proj_weight, pos_emb, lens,
+                            band_bf16=False, entry=None):
+    """Launch svt_attention_weights (svt_attention_weights_bf16band with
+    band_bf16), or `entry`, another build of the same C entry point (an A/B
+    against an earlier kernel), which counts no launch."""
+    global launches, bf16band_launches
     b, t, h, qd = q.shape
     pd = pq.shape[-1]
     if (qd, pd) not in _KERNEL_HEAD_DIMS:
@@ -76,13 +123,17 @@ def _attention_weights_cuda(q, k, pq, pos_proj_weight, pos_emb, lens):
     out = torch.empty((b, h, t, t), dtype=torch.bfloat16, device=q.device)
     if t == 0 or b == 0:
         return out
-    lib = cuda_lib.library()
-    status = lib.svt_attention_weights(
-        qh.data_ptr(), kh.data_ptr(), ph.data_ptr(), pos.data_ptr(),
-        lens32.data_ptr(), out.data_ptr(), b, h, t, qd, pd,
-        cuda_lib.stream(q.device))
-    cuda_lib.check(status, "svt_attention_weights")
-    launches += 1
+    name = "svt_attention_weights_bf16band" if band_bf16 else "svt_attention_weights"
+    fn = entry or getattr(cuda_lib.library(), name)
+    status = fn(qh.data_ptr(), kh.data_ptr(), ph.data_ptr(), pos.data_ptr(),
+                lens32.data_ptr(), out.data_ptr(), b, h, t, qd, pd,
+                cuda_lib.stream(q.device))
+    cuda_lib.check(status, name)
+    if entry is None:
+        if band_bf16:
+            bf16band_launches += 1
+        else:
+            launches += 1
     return out
 
 
@@ -101,3 +152,19 @@ def attention_weights(q, k, pq, pos_proj_weight, pos_emb, lens,
     if q.device.type != "cuda":
         raise ValueError(f"attention_weights: unsupported device {q.device}")
     return _attention_weights_cuda(q, k, pq, pos_proj_weight, pos_emb, lens)
+
+
+def attention_weights_bf16band(q, k, pq, pos_proj_weight, pos_emb, lens):
+    """[B, H, S, T] keys-major attention weights with the position scores
+    rounded to bf16 before the add (the arguments of attention_weights).
+
+    CPU tensors: the plain twin, float32. CUDA tensors (float32, or bfloat16
+    widened exactly): the kernel, bf16 out.
+    """
+    if q.device.type == "cpu":
+        return attention_weights_bf16band_plain(q, k, pq, pos_proj_weight,
+                                                pos_emb, lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_weights_bf16band: unsupported device {q.device}")
+    return _attention_weights_cuda(q, k, pq, pos_proj_weight, pos_emb, lens,
+                                   band_bf16=True)

@@ -38,6 +38,7 @@ SIGNATURES = {
     "svt_fbank_logmel": [_P] * 6 + [_I] * 4 + [_F, _P],
     # q, k, pq, pos, lens, out | B, H, T, qd, pd | stream
     "svt_attention_weights": [_P] * 6 + [_I] * 5 + [_P],
+    "svt_attention_weights_bf16band": [_P] * 6 + [_I] * 5 + [_P],
     # enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo,
     # hw_next, hw_delta, hw_node (null when S = 0),
     # rec_par, rec_tok, rec_lp, rec_met,
