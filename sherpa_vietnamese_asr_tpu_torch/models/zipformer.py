@@ -31,7 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sherpa_vietnamese_asr_tpu_torch.ops.attention import attention_weights
+from sherpa_vietnamese_asr_tpu_torch.ops.attention import (
+    attention_weights,
+    kernel_pos_table,
+)
 from sherpa_vietnamese_asr_tpu_torch.ops.encoder_layer import (
     R as LAYER_ROWS,
     encoder_layer,
@@ -220,6 +223,13 @@ def _rev_pos_on(t: int, t_pad: int, pos_dim: int, device) -> torch.Tensor:
     return torch.from_numpy(_padded_rev_pos_emb(t, t_pad, pos_dim)).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def _pos_emb_on(t: int, pos_dim: int, device) -> torch.Tensor:
+    """compact_rel_pos_emb on `device`, made once per shape: each layer then
+    projects the same tensor once (ZipformerLayer.kernel_pos_table)."""
+    return torch.from_numpy(compact_rel_pos_emb(t, pos_dim)).to(device)
+
+
 def compact_rel_pos_emb(t: int, pos_dim: int) -> np.ndarray:
     """[2T-1, pos_dim] compact relative positional embedding (numpy)."""
     x = np.arange(-(t - 1), t, dtype=np.float64)[:, None]  # [2T-1, 1]
@@ -332,6 +342,7 @@ class ZipformerLayer(nn.Module):
         self.bypass_mid_scale = nn.Parameter(
             torch.full((d,), 0.5, device=device))
         self._kernel_layout = (None, None)  # (key, tensors)
+        self._pos_table = None  # (pos_emb, key, table)
 
     def attention_weights(self, x, pos_emb, lens, dt=torch.float32):
         """Shared weights [B, H, S, T] keys-major, in dt."""
@@ -341,10 +352,27 @@ class ZipformerLayer(nn.Module):
         q = proj[..., : h * qd].reshape(b, t, h, qd)
         k = proj[..., h * qd: 2 * h * qd].reshape(b, t, h, qd)
         pq = proj[..., 2 * h * qd:].reshape(b, t, h, pd)
+        table = self.kernel_pos_table(pos_emb) if x.device.type == "cuda" else None
         w = attention_weights(q, k, pq, self.attn_pos_proj.weight.t(),
                               pos_emb, lens,
-                              pos_dtype=getattr(torch, self.cfg.pos_dtype))
+                              pos_dtype=getattr(torch, self.cfg.pos_dtype),
+                              pos_table=table)
         return w.to(dt)
+
+    def kernel_pos_table(self, pos_emb):
+        """The attention kernel's [H, 2T-1, pd] position table of pos_emb,
+        kept while pos_emb (the same tensor, not changed in place) and
+        attn_pos_proj.weight stay: the encoder passes one pos_emb per stack
+        shape (_pos_emb_on), so a layer projects it once, not per call."""
+        w = self.attn_pos_proj.weight
+        key = (pos_emb._version, id(w), w.data_ptr(), w._version)
+        cached = self._pos_table
+        if cached is None or cached[0] is not pos_emb or cached[1] != key:
+            with torch.no_grad():
+                table = kernel_pos_table(w.t(), pos_emb, self.heads)
+            cached = (pos_emb, key, table)
+            self._pos_table = cached
+        return cached[2]
 
     def forward(self, x, pos_emb, lens, pad_mask):
         """The plain layer (the JAX package's encoder_layer) in the config's
@@ -536,10 +564,10 @@ class ZipformerEncoder(nn.Module):
             else:
                 pad_mask = torch.arange(t_ds, device=h.device)[None, :] \
                     >= stack_lens[:, None]
-                pos_emb = torch.from_numpy(
-                    compact_rel_pos_emb(t_ds, cfg.pos_dim)).to(h.device)
+                pos_emb = _pos_emb_on(t_ds, cfg.pos_dim, h.device)
+                lens32 = stack_lens.to(torch.int32)  # once a stack, not a layer
                 for layer in stack.layers:
-                    hs = layer(hs, pos_emb, stack_lens, pad_mask)
+                    hs = layer(hs, pos_emb, lens32, pad_mask)
             hs = simple_upsample(hs, ds)[:, :t_full]
             h = _bypass(stack.out_bypass_scale, h_orig, hs) if ds != 1 else hs
             outputs.append(h)

@@ -29,16 +29,17 @@ TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argtypes of every C entry point; pointers and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints.
 SIGNATURES = {
     # frames, twiddle, mel_first, mel_offsets, mel_weights, out
     # | n_frames, n_fft, n_mel, n_weights | floor | stream
     "svt_fbank_logmel": [_P] * 6 + [_I] * 4 + [_F, _P],
-    # q, k, pq, pos, lens, out | B, H, T, qd, pd | stream
-    "svt_attention_weights": [_P] * 6 + [_I] * 5 + [_P],
-    "svt_attention_weights_bf16band": [_P] * 6 + [_I] * 5 + [_P],
+    # q, k, pq, pos, lens, out | B, H, T, qd, pd | element strides of the
+    # batch, time and head dims of q, k, pq | stream
+    "svt_attention_weights": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
+    "svt_attention_weights_bf16band": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
     # enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo,
     # hw_next, hw_delta, hw_node (null when S = 0),
     # rec_par, rec_tok, rec_lp, rec_met,

@@ -35,14 +35,14 @@ CUTS = {"shipped": 0, "no vocab product": 1, "no hidden layer": 2,
 LENS = [823, 611, 1, 823, 402, 0, 823, 77]  # chip_smoke.BEAM_LENS_823
 
 
-def build_entries(builds, out_dir):
-    """{name: svt_beam_search} of standalone builds of a beam_search.cu, one
-    nvcc each, all started together. builds: {name: (source, nvcc flags)}."""
+def build_entries(builds, out_dir, symbol="svt_beam_search"):
+    """{name: C entry `symbol`} of standalone builds of one source, one nvcc
+    each, all started together. builds: {name: (source, nvcc flags)}."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_lib.find_nvcc()
     jobs = {}
     for i, (name, (src, flags)) in enumerate(builds.items()):
-        lib = out_dir / f"libbeam_{i}.so"
+        lib = out_dir / f"lib{symbol}_{i}.so"
         cmd = [nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
@@ -51,8 +51,8 @@ def build_entries(builds, out_dir):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).svt_beam_search
-        fn.argtypes = cuda_lib.SIGNATURES["svt_beam_search"]
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = cuda_lib.SIGNATURES[symbol]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns

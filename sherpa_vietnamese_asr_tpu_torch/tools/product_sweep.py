@@ -114,7 +114,7 @@ def main(argv=None):
                 # one bf16 rounding of |y| <= 8, and the bias add's
                 err = float((out.float() - ref).abs().max())
                 assert err <= 2 ** -4 * 2, f"{p.name} width {bn}: max |kernel - twin| {err}"
-                _, per_name = profile_calls(run, reps=args.reps)
+                _, per_name, _ = profile_calls(run, reps=args.reps)
                 times[bn] = 1e3 * sum(v for k, v in per_name.items() if "product_kernel" in k)
             pick = el.tile_plan(p, sms).bn
             fastest = min(times, key=times.get)

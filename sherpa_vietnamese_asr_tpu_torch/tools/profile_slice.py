@@ -111,24 +111,40 @@ def layer_split(per_name):
             for part, keys in LAYER_PARTS}
 
 
+def _warm_window():
+    """A profiler schedule whose first step (tracing on, nothing kept) is a
+    warm-up: the card's tracing comes up during it, and the next step is the
+    one measured. Without it the first calls of a window could go unseen
+    (whole calls missing from the count, PERF.md)."""
+    from torch.profiler import schedule
+
+    return schedule(wait=0, warmup=1, active=1, repeat=1)
+
+
 def profile_calls(fn, reps=20):
     """Device time of one call of fn() on the card, from torch.profiler over
-    `reps` calls after one warm-up: (busy ms, {device kernel name: ms})."""
+    `reps` calls after a warm-up step: (busy ms, {device kernel name: ms},
+    {device kernel name: launches seen over the `reps` calls}). A caller that
+    times one kernel checks its count against `reps`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=_warm_window()) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     events = _device_events(prof)
     per_name = collections.defaultdict(float)
+    counts = collections.Counter(e.name for e in events)
     for e in events:
         per_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
     busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) / reps
-    return busy, dict(per_name)
+    return busy, dict(per_name), dict(counts)
 
 
 def main(argv=None):
@@ -166,11 +182,16 @@ def main(argv=None):
         for _ in range(2):
             TranscriberPipeline(path, model, config=config).run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=_warm_window()) as prof:
+            torch.ones(1, device=dev).add_(1)  # the warm-up step
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             res = TranscriberPipeline(path, model, config=config).run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            prof.step()
 
         TranscriberPipeline(long_path, model, config=config).run()
         torch.cuda.synchronize()

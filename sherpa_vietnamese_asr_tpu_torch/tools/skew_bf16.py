@@ -17,7 +17,7 @@ attention_weights_bf16band (kernel 5, the band rounded to bf16) on them and
 prints, per shape:
   - each kernel's median CUDA-event time around its wrapper, the two taking
     turns a round, kernel 5's time over kernel 2's, and each kernel's own
-    device time from torch.profiler;
+    device time from torch.profiler, which must see one launch a call;
   - the max and mean |kernel 2 - kernel 5| of the bf16 weights;
   - each kernel against its plain twin: max abs and the largest ratio to
     the bf16 gate (2**-8 + 2**-12 of |twin| + 1e-6), which must be <= 1;
@@ -46,6 +46,7 @@ STACKS = {  # name -> (T, H, qd, pd), the probe's stacks at 8 x 33 s
     "stack2": (512, 4, 32, 4),
 }
 GATE = 2**-8 + 2**-12  # bf16 unit roundoff and float32 slack
+KERNEL = "attn_kernel"  # the device kernel's name (both instantiations)
 
 
 def probe_inputs(rng, batch, t, heads, qd, pd):
@@ -73,7 +74,7 @@ def port_args(inputs, heads, dev):
 
     pd = p.shape[-1]
     table = pos[:, : 2 * t - 1].transpose(1, 0, 2).reshape(2 * t - 1, heads * pd)
-    pos_emb = torch.from_numpy(np.ascontiguousarray(table[::-1])).to(dev)
+    pos_emb = torch.from_numpy(table[::-1].copy()).to(dev)  # a copy even at T 1
     return (heads_last(q), heads_last(k), heads_last(p),
             torch.eye(heads * pd, device=dev), pos_emb, torch.from_numpy(lens).to(dev))
 
@@ -108,16 +109,30 @@ def time_turns(fns, rounds):
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def kernel_times(args, rounds):
-    """({wrapper: median event ms}, {wrapper: device ms of its kernel}) of
-    kernel 2 and kernel 5 on the same arguments."""
+def device_ms(fn, reps):
+    """(device ms of one call's attention kernel, launches of it seen) from
+    torch.profiler over `reps` calls of fn; raises unless the profile saw
+    exactly `reps` launches of the kernel."""
     from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
 
+    _, per_name, counts = profile_calls(fn, reps=reps)
+    names = [name for name in per_name if KERNEL in name]
+    seen = sum(counts[name] for name in names)
+    if seen != reps:
+        raise RuntimeError(f"profile saw {seen} launches of {KERNEL} in {reps} calls: "
+                           f"{counts}")
+    return sum(per_name[name] for name in names), seen
+
+
+def kernel_times(args, rounds):
+    """({wrapper: median event ms}, {wrapper: device ms of its kernel},
+    {wrapper: launches the profile saw}) of kernel 2 and kernel 5 on the
+    same arguments."""
     fns = {"attention_weights": lambda: attention.attention_weights(*args),
            "attention_weights_bf16band": lambda: attention.attention_weights_bf16band(*args)}
-    device = {name: sum(ms for kernel, ms in profile_calls(fn, reps=rounds)[1].items()
-                        if "attn_kernel" in kernel) for name, fn in fns.items()}
-    return time_turns(fns, rounds), device
+    device = {name: device_ms(fn, rounds) for name, fn in fns.items()}
+    return (time_turns(fns, rounds), {name: d[0] for name, d in device.items()},
+            {name: d[1] for name, d in device.items()})
 
 
 def probe_shape(name, shape, rng, batch, dev, rounds):
@@ -137,8 +152,8 @@ def probe_shape(name, shape, rng, batch, dev, rounds):
                "band_f32": versus_twin(w2, attention.attention_weights_plain(*args)),
                "band_bf16": versus_twin(w5, attention.attention_weights_bf16band_plain(*args))}
         del w2, w5, drift
-        row["kernel_ms"], row["device_ms"] = ((None, None) if dev.type == "cpu"
-                                              else kernel_times(args, rounds))
+        row["kernel_ms"], row["device_ms"], row["device_launches"] = (
+            (None, None, None) if dev.type == "cpu" else kernel_times(args, rounds))
     row["bf16band_launches"] = attention.bf16band_launches - before
     row["ok"] = all(row[k]["finite"] and row[k]["gate_ratio"] <= 1.0
                     for k in ("band_f32", "band_bf16"))
@@ -151,7 +166,8 @@ def print_row(row):
     times = ("times not measured (cpu)" if ms is None else
              f"kernel 2 {ms[k2]:.3f} ms, kernel 5 {ms[k5]:.3f} ms (kernel 5 / kernel 2 "
              f"{ms[k5] / ms[k2]:.3f}); device kernel 2 {dev[k2]:.4f} ms, kernel 5 "
-             f"{dev[k5]:.4f} ms ({dev[k5] / dev[k2]:.3f})")
+             f"{dev[k5]:.4f} ms ({dev[k5] / dev[k2]:.3f}; launches seen "
+             f"{row['device_launches'][k2]} / {row['device_launches'][k5]})")
     print(f"{row['name']}: B {row['batch']} T {row['t']} H {row['heads']} qd {row['qd']} "
           f"pd {row['pd']} lens {row['lens']}: {times}; |kernel 2 - kernel 5| max "
           f"{row['drift_max']:.3e} mean {row['drift_mean']:.3e}; vs twin: kernel 2 max "
