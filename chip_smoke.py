@@ -23,7 +23,8 @@ Phases (any failure raises and the script exits non-zero):
      with and without a hotword table, and at vocab 1999 with ties planted
      across its vocab slices; the bf16-band attention kernel at the
      attention shapes, where kernel 2's twin (the band unrounded) must fail
-     its gate; with --parent DIR, the attention, beam and layer kernels of
+     its gate; the beam kernel again at Zipformer-68M's joiner input (E 512);
+     with --parent DIR, the attention, beam and layer kernels of
      the checkout in DIR timed against these in turns, both attention
      kernels within the gate, the layer kernel's output bit-identical);
   4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
@@ -36,7 +37,22 @@ Phases (any failure raises and the script exits non-zero):
      agree with the float32 encoder's on one batch (cosine >= 0.99);
   6. bf16-band probe: tools/skew_bf16 at the probe's three stack shapes
      (kernel 2 against the bf16-band kernel: times, drift, each against its
-     twin); the bf16-band kernel must run.
+     twin); the bf16-band kernel must run;
+  7. default path: the float32 Zipformer-30M written as a sherpa-onnx
+     directory (models/onnx_export_rnnt) and loaded back on the card
+     (load_asr_model, every tensor equal); the CLI
+     `transcribe <wav> --model <dir>` in-process with its defaults (Silero
+     VAD on the card, random weights, loudly flagged) on 100 s of
+     speech-like audio with silences: its words equal an in-memory
+     TranscriberPipeline run's, the VAD's probabilities came from the card
+     and agree with the same weights on the CPU, no "VAD failed" phase, the
+     .asr.json is written and the fbank, attention and beam kernels ran;
+     ROVER over the float32 30M and 68M pair (each model's words equal its
+     own single-model decode); one bfloat16 Zipformer-68M request (kernel 4
+     on stacks 0, 1 and 5 a forward, kernel 2 on stacks 2-4, encoder cosine
+     against float32); enable_resume stopped after the decode and run again
+     on the golden file. Every wall time beside the card's name and power
+     limit.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks); the last line is
@@ -308,13 +324,15 @@ def check_fbank(dev):
             continue
         ms = time_ms(lambda: fbank.logmel(frames, cfg))
         plain_ms = time_ms(lambda: fbank._logmel_plain(frames, cfg))
-        _, kernel_dev, _ = profile_calls(lambda: fbank.logmel(frames, cfg))
+        _, kernel_dev, _ = profile_calls(lambda: fbank.logmel(frames, cfg),
+                                        expect="logmel_kernel")
         plain_busy, _, _ = profile_calls(lambda: fbank._logmel_plain(frames, cfg))
         kernel_dev_ms = sum(v for k, v in kernel_dev.items() if "logmel_kernel" in k)
         batch_ms = time_ms(lambda: fbank_batch(audio_dev))
         framing_ms = time_ms(
             lambda: fbank._frame_signal(audio_dev, cfg).reshape(-1, cfg.n_fft).contiguous())
-        batch_busy, batch_dev, _ = profile_calls(lambda: fbank_batch(audio_dev))
+        batch_busy, batch_dev, _ = profile_calls(lambda: fbank_batch(audio_dev),
+                                                 expect="logmel_kernel")
         batch_kernel = sum(v for k, v in batch_dev.items() if "logmel_kernel" in k)
         log(f"fbank asr: F {frames.shape[0]} kernel {ms:.3f} ms (device {kernel_dev_ms:.4f} ms) "
             f"plain {plain_ms:.3f} ms (device {plain_busy:.4f} ms)")
@@ -761,6 +779,56 @@ def check_beam(dev, model, parent=None):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
 
 
+def check_beam_e512(dev, model68):
+    """The beam kernel at Zipformer-68M's joiner input (E 512, the 68M
+    model's random decoder and joiner) against its twin at T 64 and 823.
+
+    Random weights leave the logits nearly uniform (top-2 probability
+    margins of about 3e-5 at V 2000), where the order of a float32 sum
+    decides some beam steps: the same twin on the host CPU differs from the
+    twin on the card in a few tokens (8 in 3 rows at T 823 on an H100).
+    So the kernel is held to that spread: it may differ from the twin on
+    the card in no more tokens than the host twin does, and on every row
+    where its tokens equal the twin's it must match frames, per-token
+    log-probs and metrics as _beam_compare does."""
+    import copy
+
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search, beam_search_cuda
+
+    cfg = model68.rnnt_cfg
+    e = cfg.encoder_out_dim
+    smem = beam_search_cuda._kernel_smem_bytes(823, e, cfg.decoder_dim, cfg.joiner_dim,
+                                               cfg.vocab_size)
+    log(f"beam E {e}: shared memory a block at T 823 {smem} B "
+        f"(limit {beam_search_cuda._SMEM_LIMIT} B)")
+    dec_cpu, joi_cpu = copy.deepcopy(model68.decoder).cpu(), copy.deepcopy(model68.joiner).cpu()
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    for t, lens in ((64, BEAM_LENS_64), (823, BEAM_LENS_823)):
+        enc = torch.randn((SLICE_BATCH, t, e), generator=gen).to(dev)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got, ref = _beam_pair(enc, lens, model68.decoder, model68.joiner, cfg)
+        host = beam_search.beam_search_batch(enc.cpu(), lens.cpu(), dec_cpu, joi_cpu, cfg, 8)
+        torch.cuda.synchronize()
+        kernel_diff = got.tokens != ref.tokens
+        order_diff = int((ref.tokens.cpu() != host.tokens).sum())
+        same = ~kernel_diff.any(dim=1)
+        log(f"beam E={e} T={t} mixed lens: kernel vs twin {int(kernel_diff.sum())} tokens "
+            f"differ (rows {kernel_diff.any(dim=1).nonzero().flatten().tolist()}), twin on "
+            f"the host vs on the card {order_diff}; n {got.num_tokens.tolist()}")
+        assert int(kernel_diff.sum()) <= order_diff, f"beam E={e} T={t}: token parity"
+        rows = [beam_search.BeamResult(*(getattr(r, f.name)[same]
+                                         for f in dataclasses.fields(r)))
+                for r in (got, ref)]
+        _beam_compare(f"E={e} T={t} rows {same.nonzero().flatten().tolist()}", *rows)
+    args = (enc, lens, model68.decoder, model68.joiner, cfg, 8)
+    ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args), reps=5, warmup=1)
+    bnd = beam_bound(*args)
+    log(f"beam E {e}: B {SLICE_BATCH} T 823 V {cfg.vocab_size} beam 8: kernel {ms:.3f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+
+
 def perturbed_layer(layer, gen):
     """A copy of `layer` with N(0, 0.1) added to every bias, depthwise bias,
     the BiasNorm bias and log-scale and both bypass scales. Random init
@@ -1188,6 +1256,275 @@ def phase_probe():
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+VAD_CPU_TOL = 1e-4  # max |card - CPU| of the VAD's probabilities, full float32
+DEFAULT_PATH_SECONDS = 100.0
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def default_path_audio():
+    """100 s of speech-like audio with silences of 0.5 to 3 s."""
+    rng = np.random.default_rng(11)
+    x = speechlike(rng, int(DEFAULT_PATH_SECONDS * SR))
+    for start, length in ((7.0, 2.0), (23.5, 0.5), (41.0, 3.0), (58.0, 1.0),
+                          (77.0, 2.5), (93.0, 1.5)):
+        x[int(start * SR): int((start + length) * SR)] = 0.0
+    return x
+
+
+def _words(segments):
+    return [(w["text"], round(w["start"], 3), round(w["end"], 3))
+            for seg in segments for w in seg.get("raw_words", [])]
+
+
+def load_checkpoint_dir(model, tmp):
+    """Write `model` as a sherpa-onnx directory and load it on the card:
+    every tensor must equal the source's, none may stay on the CPU."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_rnnt import export_asr_dir
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import load_asr_model
+
+    model_dir = os.path.join(tmp, "zipformer-30m-rnnt-6000h")
+    t0 = time.perf_counter()
+    export_asr_dir(model, model_dir)
+    t1 = time.perf_counter()
+    loaded = load_asr_model(model_dir, beam_size=model.beam_size, device=model.device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = 0
+    for a, b in ((loaded.encoder, model.encoder), (loaded.decoder, model.decoder),
+                 (loaded.joiner, model.joiner)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert set(sa) == set(sb), "loaded model: keys differ"
+        for k in sb:
+            assert sa[k].device.type == "cuda", f"{k} left on {sa[k].device}"
+            assert torch.equal(sa[k], sb[k]), f"loaded model: {k} differs"
+            n += 1
+    assert loaded.id2token == model.id2token and loaded.zip_cfg == model.zip_cfg
+    log(f"default path: export {t1 - t0:.2f} s, load_asr_model {t2 - t1:.2f} s, "
+        f"{n} tensors equal to the source's on {loaded.device}")
+    return model_dir
+
+
+def run_cli(argv):
+    """The port's CLI in-process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from sherpa_vietnamese_asr_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def check_vad(calls):
+    """The VAD's probabilities of the CLI run: on the card, L // 512 of
+    them, finite, and within VAD_CPU_TOL of the same weights on the CPU."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models import silero_vad
+
+    assert len(calls) == 1, f"the VAD ran {len(calls)} times"
+    vad, audio, probs = calls[0]
+    assert probs.device.type == "cuda", f"VAD probabilities on {probs.device}"
+    assert probs.shape == (len(audio) // 512,), probs.shape
+    assert bool(torch.isfinite(probs).all()), "VAD: non-finite probabilities"
+    cpu = silero_vad.SileroVad(vad.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in vad.state_dict().items()})
+    want = silero_vad.silero_vad_probs_streamed(cpu.to("cpu"), audio)
+    err = float((probs.cpu() - want).abs().max())
+    above = float((probs > 0.2).float().mean())
+    log(f"default path: VAD {probs.shape[0]} windows on {probs.device}, max |card - CPU| "
+        f"{err:.3e} (gate {VAD_CPU_TOL}), share above the 0.2 threshold {above:.3f}")
+    assert err <= VAD_CPU_TOL, "VAD: card and CPU disagree"
+
+
+def rover_pair(model, model68, audio):
+    """ROVER's decoder on one shared fbank: each model's words equal its
+    own single-model decode of the same spans."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline import chunking
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder
+
+    plan = chunking.plan_chunks(len(audio), chunking.find_silent_regions(audio))
+    spans = [(s, e) for s, e, _ in plan]
+    words_a, words_b = BatchedChunkDecoder(model, model_b=model68).decode_spans(audio, spans)
+    for label, m, got in (("30M", model, words_a), ("68M", model68, words_b)):
+        want = BatchedChunkDecoder(m).decode_spans(audio, spans)
+        same = [[(w["text"], w["start"], w["end"], w["prob"]) for w in a]
+                == [(w["text"], w["start"], w["end"], w["prob"]) for w in b]
+                for a, b in zip(got, want)]
+        log(f"default path: ROVER decoder, {label} words of {len(spans)} chunks equal its "
+            f"own decode: {sum(same)} of {len(same)} ({sum(map(len, got))} words)")
+        assert all(same) and len(got) == len(want), f"ROVER: the {label} words moved"
+
+
+def bf16_68m(model68, model68_16, audio, path):
+    """One bfloat16 Zipformer-68M request, then one encoder forward with the
+    counts at 0: kernel 4 on stacks 0, 1 and 5 (6 layers), kernel 2 on
+    stacks 2-4 (10 layers); cosine against the float32 68M encoder."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import use_layer_kernel
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, encoder_layer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import (
+        BatchedChunkDecoder,
+        fbank_batch,
+    )
+
+    cfg = model68_16.zip_cfg
+    t_ds = [-(-1646 // ds) for ds in cfg.downsampling_factor]
+    kernel_stacks = [i for i in range(6) if use_layer_kernel(cfg, i, t_ds[i], "cuda")]
+    assert kernel_stacks == [0, 1, 5], kernel_stacks
+    attention.launches = encoder_layer.launches = 0
+    t0 = time.perf_counter()
+    res = TranscriberPipeline(path, model68_16, config={}).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"default path: bf16 68M request wall {wall:.3f} s, vad {res['timing']['vad']:.3f} s, "
+        f"segments {len(res['segments'])}, launches kernel 4 {encoder_layer.launches} "
+        f"kernel 2 {attention.launches} ({card()})")
+    assert res["segments"], "bf16 68M: no words"
+
+    spans = [(s, min(s + 30 * SR, len(audio)))
+             for s in range(0, len(audio) - 3 * SR, 27 * SR)]
+    batch, lens = BatchedChunkDecoder(model68_16)._build_batch(
+        audio, spans + [(0, 1)] * (SLICE_BATCH - len(spans)))
+    dev = model68_16.device
+    with torch.no_grad():
+        feats = fbank_batch(torch.from_numpy(batch).to(dev))
+        n = torch.from_numpy((lens + 80) // 160).to(dev)
+        attention.launches = encoder_layer.launches = 0
+        e16, l16 = model68_16.encoder(feats, n)
+        torch.cuda.synchronize()
+        per_forward = {"kernel 4": encoder_layer.launches, "kernel 2": attention.launches}
+        e32, l32 = model68.encoder(feats, n)
+    layers = cfg.num_encoder_layers
+    want = {"kernel 4": sum(layers[i] for i in kernel_stacks),
+            "kernel 2": sum(layers[i] for i in range(6) if i not in kernel_stacks)}
+    cos = [float(torch.nn.functional.cosine_similarity(
+        e16[i, :ln].flatten(), e32[i, :ln].flatten(), dim=0))
+        for i, ln in enumerate(l32.tolist()[: len(spans)])]
+    log(f"default path: bf16 68M forward: launches {per_forward} (kernel 4 on stacks "
+        f"{kernel_stacks}, kernel 2 on the other 3; expected {want}); encoder cosine vs "
+        f"float32 {[round(c, 6) for c in cos]}")
+    assert per_forward == want, "bf16 68M: the gate routed stacks elsewhere"
+    assert torch.equal(l16, l32) and min(cos) >= COSINE_GATE, "bf16 68M far from float32"
+
+
+def resume_twice(model, path):
+    """enable_resume: a run stopped after the decode leaves its checkpoint;
+    the next run resumes from it, gives the uninterrupted run's text and
+    clears it."""
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+
+    ckpt = path + ".asr_ckpt.json"
+    config = {"enable_resume": True}
+    want = TranscriberPipeline(path, model, config={}).run()["text"]
+    first = TranscriberPipeline(path, model, config,
+                                cancel_check=lambda: os.path.exists(ckpt)).run()
+    assert first is None and os.path.exists(ckpt), "resume: no checkpoint left"
+    phases = []
+    second = TranscriberPipeline(path, model, config, progress_callback=phases.append).run()
+    assert "PHASE:Transcription|Resuming from checkpoint|100" in phases
+    assert second["text"] == want and want, "resume: the text moved"
+    assert not os.path.exists(ckpt), "resume: checkpoint left after the run"
+    log(f"default path: enable_resume stopped after the decode, resumed: text equal "
+        f"({len(want.split())} words)")
+
+
+def phase_default_path(dev, model, model68, model68_16, tmp):
+    """The user's default path: checkpoint directory -> CLI transcribe with
+    Silero VAD on the card -> .asr.json; ROVER; bf16 68M; resume."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.models import silero_vad
+    from sherpa_vietnamese_asr_tpu_torch.models.golden import golden_audio
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+
+    # No Silero checkpoint: the default VAD runs random weights (loud warning).
+    os.environ["SVT_MODELS_DIR"] = os.path.join(tmp, "no_models")
+    model_dir = load_checkpoint_dir(model, tmp)
+    audio = default_path_audio()
+    path = os.path.join(tmp, "speech_100s.wav")
+    write_wav(path, audio, SR)
+
+    calls = []
+    streamed = silero_vad.silero_vad_probs_streamed
+
+    def recording(vad, a, *args, **kw):
+        probs = streamed(vad, a, *args, **kw)
+        calls.append((vad, np.array(a), probs))
+        return probs
+
+    silero_vad.silero_vad_probs_streamed = recording
+    try:
+        for mod in (fbank, attention, beam_search_cuda):
+            mod.launches = 0
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["transcribe", path, "--model", model_dir, "-v"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                    "beam_search": beam_search_cuda.launches}
+    finally:
+        silero_vad.silero_vad_probs_streamed = streamed
+    for line in err.splitlines():
+        if not line.startswith("PHASE:"):
+            log(f"cli: {line}")
+    assert rc == 0, f"cli exit {rc}"
+    assert "Silero VAD is running with RANDOM weights" in err, "no random-weight warning"
+    phases = [line for line in err.splitlines() if line.startswith("PHASE:")]
+    assert "PHASE:VAD|Detecting speech|0" in phases, "the VAD did not run"
+    assert not any("VAD failed" in p for p in phases), \
+        [p for p in phases if "VAD failed" in p]
+    with open(path + ".asr.json", encoding="utf-8") as f:
+        data = json.load(f)
+    log(f"default path: cli wall {wall:.3f} s (the model loaded from its directory), vad "
+        f"{data['timing']['vad']:.3f} s, {[p for p in phases if 'Found' in p]}, "
+        f"segments {len(data['segments'])}, launches {launches} ({card()})")
+    assert data["text"] == out.strip().splitlines()[0] and data["text"]
+    assert all(n > 0 for n in launches.values()), "a kernel never ran on the default path"
+    check_vad(calls)
+
+    res = TranscriberPipeline(path, model, config={}).run()
+    assert data["text"] == res["text"], "cli and in-memory pipeline: text differs"
+    got = [(w["text"], w.get("start"), w.get("end"))
+           for seg in data["segments"] for w in seg.get("raw_words", [])]
+    assert got == _words(res["segments"]), "cli and in-memory pipeline: words differ"
+    t0 = time.perf_counter()  # warm
+    res = TranscriberPipeline(path, model, config={}).run()
+    torch.cuda.synchronize()
+    log(f"default path: float32 30M request, warm, wall {time.perf_counter() - t0:.3f} s, "
+        f"vad {res['timing']['vad']:.3f} s, words {len(_words(res['segments']))} ({card()})")
+
+    rover_pair(model, model68, audio)
+    t0 = time.perf_counter()
+    res = TranscriberPipeline(path, (model, model68), config={}).run()
+    torch.cuda.synchronize()
+    log(f"default path: ROVER 30M + 68M request wall {time.perf_counter() - t0:.3f} s, "
+        f"vad {res['timing']['vad']:.3f} s, words {len(_words(res['segments']))} ({card()})")
+    assert res["segments"], "ROVER: no words"
+
+    bf16_68m(model68, model68_16, audio, path)
+    golden = os.path.join(tmp, "golden_6s.wav")
+    write_wav(golden, golden_audio(), SR)
+    resume_twice(model, golden)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -1205,7 +1542,7 @@ def main(argv=None):
     phase_build()
     parent = parent_entries(os.path.abspath(args.parent)) if args.parent else None
 
-    from sherpa_vietnamese_asr_tpu_torch.models.registry import random_asr_model
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import MODEL_68M, random_asr_model
     from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import synthetic_hotword_tables
 
     t0 = time.perf_counter()
@@ -1215,12 +1552,17 @@ def main(argv=None):
                                device=dev)
     tables = synthetic_hotword_tables(model16.rnnt_cfg.vocab_size, dev)
     model16.hotword_tables = tables
+    model68 = random_asr_model(MODEL_68M, vocab_size=2000, beam_size=8, device=dev)
+    model68_16 = random_asr_model(MODEL_68M, vocab_size=2000, beam_size=8,
+                                  compute_dtype="bfloat16", device=dev)
     log(f"models: Zipformer-30M random (seed 0), float32 and bfloat16 (hotword table "
-        f"S {tables.next_state.shape[0]}) on {dev} in {time.perf_counter() - t0:.1f} s")
+        f"S {tables.next_state.shape[0]}), Zipformer-68M random (seed 0), float32 and "
+        f"bfloat16, on {dev} in {time.perf_counter() - t0:.1f} s")
     kernels = [check_fbank(dev), check_attention(dev, model, parent),
                check_beam(dev, model, parent), check_encoder_layer(dev, model16, parent),
                check_beam_hotwords(dev, model16, tables, parent),
                check_attention_bf16band(dev, model)]
+    check_beam_e512(dev, model68)
     log("PHASE kernel parity ok")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)
@@ -1229,7 +1571,10 @@ def main(argv=None):
     log("PHASE slice bf16 ok")
     launches_probe = phase_probe()
     log("PHASE probe bf16band ok")
-    paths = (launches, launches_bf16, launches_probe)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_default = phase_default_path(dev, model, model68, model68_16, tmp)
+    log("PHASE default path ok")
+    paths = (launches, launches_bf16, launches_probe, launches_default)
     for k in kernels:  # each kernel's count from the first path that runs it
         k["route"] = "cuda"
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)

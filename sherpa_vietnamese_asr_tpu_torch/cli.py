@@ -1,0 +1,192 @@
+# Command-line interface of the port.
+#
+# Port of sherpa_vietnamese_asr_tpu/cli.py's `transcribe` subcommand
+# (_load_model, cmd_transcribe and their arguments):
+#
+#   python -m sherpa_vietnamese_asr_tpu_torch.cli transcribe <audio>
+#       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad] ...
+#       -> prints the text, writes <audio>.asr.json
+#
+# It runs on the card unless --device cpu is given; without a card the
+# default raises. --diarize, --punctuate and --quality raise
+# NotImplementedError until their stages are ported; the other subcommands
+# of the reference (serve, warmup, calibrate, ...) are not ported yet.
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+
+def _load_model(args):
+    from sherpa_vietnamese_asr_tpu_torch.models import assets
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import (
+        MODEL_30M,
+        MODEL_68M,
+        load_asr_model,
+        random_asr_model,
+    )
+
+    if getattr(args, "models_dir", None):
+        os.environ["SVT_MODELS_DIR"] = args.models_dir
+    name = args.model
+    kw = dict(beam_size=args.beam, compute_dtype=args.dtype, device=args.device)
+    if os.path.isdir(name):
+        return load_asr_model(name, **kw)
+    big = "68" in name or "2025" in name
+    model_dir = assets.asr_model_dir("zipformer-68m" if big else "zipformer-30m")
+    if model_dir is not None:
+        return load_asr_model(model_dir, **kw)
+    # Refuse silent garbage: random weights only behind an explicit flag.
+    assets.require_real_or_allowed(f"ASR model {name}", args.allow_random)
+    return random_asr_model(MODEL_68M if big else MODEL_30M, **kw)
+
+
+def cmd_transcribe(args):
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import (
+        MODEL_68M,
+        model_device,
+        random_asr_model,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.asr_json import (
+        save_asr_json,
+        serialize_segments,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import (
+        TranscriberPipeline,
+    )
+
+    for flag, stage in (("diarize", "speaker diarization"),
+                        ("punctuate", "punctuation restoration"),
+                        ("quality", "DNSMOS quality analysis")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {stage} is not ported yet")
+    device = model_device(args.device)
+    model = _load_model(args)
+    if args.hotwords_file:
+        from sherpa_vietnamese_asr_tpu_torch.utils.config import (
+            build_hotword_tables_for_model,
+        )
+        model_dir = args.model if os.path.isdir(args.model) else "."
+        tables, kept = build_hotword_tables_for_model(
+            model_dir, model.rnnt_cfg.vocab_size,
+            hotwords_file=args.hotwords_file,
+            default_score=args.hotwords_score)
+        if tables is None:
+            print("[cli] hotwords requested but no usable hotword file / "
+                  "bpe.model found; continuing without", file=sys.stderr)
+        else:
+            model = dataclasses.replace(model, hotword_tables=tables).to(device)
+            print(f"[cli] hotword boosting active for {len(kept)} phrases",
+                  file=sys.stderr)
+    if args.rover:
+        model = (model, random_asr_model(MODEL_68M, beam_size=args.beam,
+                                         device=device))
+
+    config = {
+        "max_batch": args.max_batch,
+        "preprocess_rms_normalize": args.rms_normalize,
+        "preprocess_wpe": args.wpe,
+        "bypass_vad": args.no_vad,
+        "enable_resume": args.enable_resume,
+    }
+
+    def progress(msg):
+        if args.verbose and msg.startswith("PHASE:"):
+            print(msg, file=sys.stderr)
+
+    pipeline = TranscriberPipeline(args.audio, model, config,
+                                   progress_callback=progress)
+    t0 = time.time()
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            result = pipeline.run()
+        prof.export_chrome_trace(args.profile)
+        print(f"[cli] profiler trace written to {args.profile}",
+              file=sys.stderr)
+    else:
+        result = pipeline.run()
+    dt = time.time() - t0
+    if result is None:
+        print("cancelled", file=sys.stderr)
+        return 1
+    print(result["text"])
+    rtfx = result["duration_sec"] / max(dt, 1e-6)
+    print(f"[cli] {result['duration_sec']:.1f}s audio in {dt:.1f}s "
+          f"({rtfx:.1f}x realtime), {len(result['segments'])} segments",
+          file=sys.stderr)
+    out_path = args.output or (args.audio + ".asr.json")
+    data = serialize_segments(result["segments"],
+                              model_name=getattr(model, "name", "rover"),
+                              duration_sec=result["duration_sec"],
+                              timing=result["timing"],
+                              overlap_segments=result["overlap_segments"])
+    data["text"] = result["text"]
+    save_asr_json(out_path, data)
+    print(f"[cli] wrote {out_path}", file=sys.stderr)
+    return 0
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="svt-torch",
+        description="Vietnamese ASR on an NVIDIA GPU (PyTorch/CUDA port)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("transcribe", help="transcribe an audio file")
+    t.add_argument("audio")
+    t.add_argument("--model", default="zipformer-30m-rnnt-6000h",
+                   help="model dir (with ONNX + tokens.txt) or model id")
+    t.add_argument("--beam", type=int, default=8)
+    t.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="encoder compute dtype; bfloat16 transcripts are "
+                        "not bit-identical to float32")
+    t.add_argument("--device", default="cuda",
+                   help="torch device; the default needs a card, 'cpu' "
+                        "runs every kernel's plain PyTorch twin")
+    t.add_argument("--rover", action="store_true")
+    t.add_argument("--diarize", action="store_true")
+    t.add_argument("--punctuate", action="store_true")
+    t.add_argument("--quality", action="store_true",
+                   help="DNSMOS audio-quality analysis")
+    t.add_argument("--hotwords-file", default=None,
+                   help="hotword phrases file (one per line, optional "
+                        ":score suffix); needs bpe.model in the model dir")
+    t.add_argument("--hotwords-score", type=float, default=1.5)
+    t.add_argument("--max-batch", type=int, default=8)
+    t.add_argument("--rms-normalize", action="store_true")
+    t.add_argument("--wpe", action="store_true")
+    t.add_argument("--no-vad", action="store_true")
+    t.add_argument("--output", default=None)
+    t.add_argument("--profile", default=None,
+                   help="write a torch.profiler Chrome trace to this file")
+    t.add_argument("--resume", "--enable-resume", dest="enable_resume",
+                   action="store_true",
+                   help="resume from a .asr_ckpt.json if present")
+    t.add_argument("--models-dir", default=None,
+                   help="root of downloaded model assets "
+                        "(default: $SVT_MODELS_DIR or ./models)")
+    t.add_argument("--allow-random", action="store_true",
+                   help="permit RANDOM-weight models when no checkpoint is "
+                        "found (output is garbage; tests/benchmarks only)")
+    t.add_argument("-v", "--verbose", action="store_true")
+    t.set_defaults(fn=cmd_transcribe)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

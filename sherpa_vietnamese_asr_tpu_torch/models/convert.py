@@ -3,8 +3,9 @@
 # The JAX package keeps parameters as nested dicts of arrays with [d_in,
 # d_out] linears, HWIO conv kernels and [K, D] depthwise kernels. This module
 # takes such trees as nested dicts of numpy arrays (np.asarray of every leaf)
-# and loads them into ZipformerEncoder / Decoder / Joiner with every layout
-# change done here, so the same weights run through both packages.
+# and loads them into ZipformerEncoder / Decoder / Joiner (and the Silero
+# VAD tree into models/silero_vad.SileroVad) with every layout change done
+# here, so the same weights run through both packages.
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from sherpa_vietnamese_asr_tpu_torch.models.registry import (
     model_device,
 )
 from sherpa_vietnamese_asr_tpu_torch.models.rnnt import RnntConfig
+from sherpa_vietnamese_asr_tpu_torch.models.silero_vad import SileroVad, SileroVadConfig
 from sherpa_vietnamese_asr_tpu_torch.models.zipformer import ZipformerConfig
 
 
@@ -95,6 +97,26 @@ def _load(module, state):
          for k, v in state.items()}, strict=True)
 
 
+def silero_state_dict(params) -> dict:
+    """JAX Silero VAD tree -> SileroVad state dict (numpy values): conv
+    kernels [3, C_in, C_out] -> [C_out, C_in, 3], the LSTM's [in, 4D]
+    weights transposed and its one bias in bias_ih_l0 (bias_hh_l0 zero), the
+    head [D, 1] -> [1, D]."""
+    out = {"stft_cos": np.asarray(params["stft_cos"]),
+           "stft_sin": np.asarray(params["stft_sin"])}
+    for i, layer in enumerate(params["encoder"]):
+        out[f"encoder.{i}.weight"] = np.asarray(layer["weight"]).transpose(2, 1, 0)
+        out[f"encoder.{i}.bias"] = np.asarray(layer["bias"])
+    lstm = params["lstm"]
+    out["lstm.weight_ih_l0"] = np.asarray(lstm["wi"]).T
+    out["lstm.weight_hh_l0"] = np.asarray(lstm["wh"]).T
+    out["lstm.bias_ih_l0"] = np.asarray(lstm["b"])
+    out["lstm.bias_hh_l0"] = np.zeros_like(np.asarray(lstm["b"]))
+    out["head.weight"] = np.asarray(params["out"]["weight"]).T
+    out["head.bias"] = np.asarray(params["out"]["bias"])
+    return out
+
+
 def asr_model_from_numpy(enc, dec, joi, zip_cfg: ZipformerConfig,
                          rnnt_cfg: RnntConfig, id2token, device="cuda",
                          name: str = "converted",
@@ -107,3 +129,13 @@ def asr_model_from_numpy(enc, dec, joi, zip_cfg: ZipformerConfig,
     _load(model.decoder, decoder_state_dict(dec))
     _load(model.joiner, joiner_state_dict(joi))
     return model.to(device)
+
+
+def silero_from_numpy(state, cfg: SileroVadConfig, device="cuda") -> SileroVad:
+    """A SileroVad on `device`, the card by default (raises without one),
+    from a SileroVad state dict of numpy arrays (silero_state_dict, or
+    models/onnx_import.load_silero_vad)."""
+    device = model_device(device)
+    vad = SileroVad(cfg)
+    _load(vad, state)
+    return vad.to(device)

@@ -3,13 +3,15 @@
 # Port of sherpa_vietnamese_asr_tpu/models/registry.py. A bundle holds the
 # encoder, decoder and joiner as PyTorch modules plus the host-side vocab;
 # random_asr_model builds one at the true architecture sizes with weights
-# drawn from an explicit torch.Generator (models/convert.py loads the JAX
-# package's trees instead).
+# drawn from an explicit torch.Generator, load_asr_model from a sherpa-onnx
+# model directory (models/onnx_import.py), and models/convert.py from the
+# JAX package's trees.
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -65,6 +67,20 @@ def model_device(device) -> torch.device:
             f"model device {device}: no CUDA device is available; pass "
             f"device=\"cpu\" to build the model on the CPU")
     return device
+
+
+def load_tokens(path: str) -> list:
+    """Parse a sherpa-onnx tokens.txt ('piece id' per line) into a list."""
+    pairs = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split()
+            if len(parts) >= 2:
+                pairs.append((int(parts[-1]), parts[0]))
+    vocab = [""] * (max(i for i, _ in pairs) + 1)
+    for i, tok in pairs:
+        vocab[i] = tok
+    return vocab
 
 
 def synthetic_vocab(vocab_size: int, seed: int = 0) -> list:
@@ -140,4 +156,28 @@ def random_asr_model(name: str = MODEL_30M, vocab_size: int = 2000,
                           beam_size)
     for m in (model.encoder, model.decoder, model.joiner):
         _init_random_(m, generator)
+    return model.to(device)
+
+
+def load_asr_model(model_dir: str, beam_size: int = 8,
+                   compute_dtype: str = "float32",
+                   device="cuda") -> AsrModel:
+    """Load a model bundle from a sherpa-onnx style directory
+    (encoder-*.onnx / decoder-*.onnx / joiner-*.onnx / tokens.txt): the
+    68M configuration when the directory's name carries its release date,
+    else the 30M one. The files are read on the host and the model moves to
+    `device` once, the card by default (raises without one)."""
+    from sherpa_vietnamese_asr_tpu_torch.models import convert, onnx_import
+
+    device = model_device(device)
+    id2token = load_tokens(os.path.join(model_dir, "tokens.txt"))
+    name = os.path.basename(os.path.normpath(model_dir))
+    zcfg = ZIPFORMER_68M if "2025-04-20" in name else ZIPFORMER_30M
+    zcfg = dataclasses.replace(zcfg, compute_dtype=compute_dtype)
+    rcfg = RnntConfig(vocab_size=len(id2token), encoder_out_dim=zcfg.output_dim)
+    enc, dec, joi = onnx_import.load_zipformer_rnnt(model_dir, zcfg, rcfg)
+    model = build_modules(name, zcfg, rcfg, id2token, beam_size)
+    convert._load(model.encoder, enc)
+    convert._load(model.decoder, dec)
+    convert._load(model.joiner, joi)
     return model.to(device)

@@ -38,6 +38,8 @@ from sherpa_vietnamese_asr_tpu_torch.ops.attention import (
 from sherpa_vietnamese_asr_tpu_torch.ops.encoder_layer import (
     R as LAYER_ROWS,
     encoder_layer,
+    layer_products,
+    plan_error,
 )
 
 
@@ -61,9 +63,9 @@ class ZipformerConfig:
     # Kept for field-name parity with the JAX config; this package always
     # takes the attention kernel on CUDA.
     attention_kernel: str = "auto"
-    # Whole-layer kernel (ops/encoder_layer.py): "auto" takes it for every
-    # stack on CUDA in bfloat16, "never"/"always" force (see
-    # use_layer_kernel).
+    # Whole-layer kernel (ops/encoder_layer.py): "auto" takes it on CUDA in
+    # bfloat16 for every stack whose shapes it holds, "never"/"always" force
+    # (see use_layer_kernel).
     layer_kernel: str = "auto"
     # Conv2dSubsampling channels
     embed_layer1_channels: int = 8
@@ -501,19 +503,33 @@ def use_layer_kernel(cfg: ZipformerConfig, stack_idx: int, t_ds: int,
     """Whether stack `stack_idx` (t_ds frames) runs the whole-layer kernel.
 
     The JAX gate's meaning: "never" and "always" force; "auto" takes it on
-    an accelerator in bfloat16 only. Its other conditions (a VMEM estimate,
-    heads > 4, t_pad < 384) are limits of the TPU's VMEM and per-block
-    overhead, not of this card, so "auto" on CUDA in bfloat16 takes the
-    kernel on every stack. stack_idx and t_ds stay in the signature for that
-    reason: they no longer change the answer.
+    an accelerator in bfloat16 only, and only on a stack whose shapes the
+    kernel holds. Its TPU conditions (a VMEM estimate, heads > 4, t_pad <
+    384) are limits of the TPU's VMEM and per-block overhead, not of this
+    card; here "auto" asks the kernel's own tile plan (ops/encoder_layer.
+    plan_error) whether it takes every product of the stack's layer. At
+    Zipformer-30M it takes all six stacks; at Zipformer-68M not stacks 2-4,
+    whose nonlin attend is 288 or 384 columns wide (at most NONLIN_MAX_N):
+    they run the plain bf16 layer with the attention kernel.
     """
     if cfg.layer_kernel == "never":
         return False
     if cfg.layer_kernel == "always":
         return True
-    if device_type == "cpu":
+    if device_type == "cpu" or cfg.compute_dtype != "bfloat16":
         return False
-    return cfg.compute_dtype == "bfloat16"
+    return all(plan_error(p) is None for p in stack_products(cfg, stack_idx, t_ds))
+
+
+def stack_products(cfg: ZipformerConfig, stack_idx: int, t_ds: int):
+    """The 20 products of one layer of stack `stack_idx` at t_ds frames
+    (batch 1, the sequence padded to a multiple of LAYER_ROWS), as the
+    whole-layer kernel runs them."""
+    d, ff = cfg.encoder_dim[stack_idx], cfg.ffn_dim[stack_idx]
+    tp = -(-t_ds // LAYER_ROWS) * LAYER_ROWS
+    return layer_products(1, tp, d, cfg.num_heads[stack_idx], cfg.query_head_dim,
+                          cfg.pos_head_dim, cfg.value_head_dim, 3 * d // 4,
+                          (ff * 3) // 4, ff, (ff * 5) // 4)
 
 
 class ZipformerEncoder(nn.Module):

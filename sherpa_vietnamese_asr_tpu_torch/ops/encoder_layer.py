@@ -134,26 +134,40 @@ def tile_plan(product, sms=132):
     11% of it (tools/product_sweep.py; PERF.md). The ring is as deep as
     shared memory holds, at most MAX_STAGES.
     """
-    n, k = product.n, product.k
+    error = plan_error(product)
+    if error:
+        raise ValueError(f"encoder layer kernel: {error}")
+    n = product.n
     if product.attend:
-        limit = SA_MAX_N if product.zdiv > 1 else NONLIN_MAX_N
-        if n > limit or n % 2 or product.m % 8 or (product.zdiv * n) % 8:
-            raise ValueError(f"encoder layer kernel: attend {product.name} of width {n} "
-                             f"(at most {limit}, even) over {product.m} rows")
         reach = max(head_shift(h, n) + n for h in range(product.zdiv))
         bn, nw = -(-reach // 16) * 16, ATTEND_NW
-        if bn > limit:
-            raise ValueError(f"encoder layer kernel: attend {product.name}: heads of width "
-                             f"{n} reach column {reach} of a {limit}-column tile")
     else:
-        if k % 8 or n % 2:
-            raise ValueError(f"encoder layer kernel: linear {product.name} needs d_in a "
-                             f"multiple of 8 and d_out even, got {k} -> {n}")
         m_tiles = -(-product.m // BM) * product.batches
         bn = min(LINEAR_BN, key=lambda w: (-(-m_tiles * -(-n // w) // sms) * (w + 64), w))
         nw = LINEAR_NW
     stage = (BM + bn) * BK * 2 + 16
     return TilePlan(BM, bn, nw, min(MAX_STAGES, (SMEM_LIMIT - 1024) // stage))
+
+
+def plan_error(product):
+    """Why the kernel cannot take `product`, or None if it can: an attend
+    is at most SA_MAX_N (a self-attention head) or NONLIN_MAX_N (the nonlin
+    attend) columns wide, even, and its heads' columns fit one tile; a
+    linear needs d_in a multiple of 8 and d_out even."""
+    n, k = product.n, product.k
+    if product.attend:
+        limit = SA_MAX_N if product.zdiv > 1 else NONLIN_MAX_N
+        if n > limit or n % 2 or product.m % 8 or (product.zdiv * n) % 8:
+            return (f"attend {product.name} of width {n} (at most {limit}, even) "
+                    f"over {product.m} rows")
+        reach = max(head_shift(h, n) + n for h in range(product.zdiv))
+        if -(-reach // 16) * 16 > limit:
+            return (f"attend {product.name}: heads of width {n} reach column "
+                    f"{reach} of a {limit}-column tile")
+    elif k % 8 or n % 2:
+        return (f"linear {product.name} needs d_in a multiple of 8 and d_out "
+                f"even, got {k} -> {n}")
+    return None
 
 
 def head_shift(h, n):

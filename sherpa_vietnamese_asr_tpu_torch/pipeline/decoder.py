@@ -1,5 +1,5 @@
 # Batched chunk decoder: fbank -> Zipformer -> beam search for a whole batch
-# of ~30 s chunks at once.
+# of ~30 s chunks at once; in ROVER mode one fbank a batch feeds two models.
 #
 # Port of sherpa_vietnamese_asr_tpu/pipeline/decoder.py. Chunks are
 # zero-padded to one static length (33 s = 30 s + 3 s overlap) and the last
@@ -8,7 +8,8 @@
 # frames near its end equal those of an exact-length fbank. PyTorch's CUDA
 # work is asynchronous, so up to three batches are in flight: the host
 # builds and uploads the next batch while the card decodes the previous
-# ones, and only collecting a result waits for the card.
+# ones, and only collecting a result waits for the card. A chunk transform
+# (WPE dereverberation) runs on each chunk on the host before the upload.
 
 from __future__ import annotations
 
@@ -49,8 +50,16 @@ class BatchedChunkDecoder:
 
     def __init__(self, model: AsrModel, max_batch: int = 8,
                  chunk_pad_sec: float = CHUNK_PAD_SEC,
-                 transfer_dtype: str | None = None):
+                 transfer_dtype: str | None = None,
+                 model_b: AsrModel | None = None,
+                 chunk_transform=None):
+        if model_b is not None and model_b.device != model.device:
+            raise ValueError(f"ROVER pair on two devices: {model.device} and "
+                             f"{model_b.device}")
         self.model = model
+        self.model_b = model_b
+        self.models = [model] + ([model_b] if model_b is not None else [])
+        self.chunk_transform = chunk_transform  # e.g. WPE per chunk
         self.max_batch = max_batch
         self.pad_len = int(chunk_pad_sec * SAMPLE_RATE)
         # float32 by default; "int16" halves the upload and is lossless for
@@ -64,7 +73,10 @@ class BatchedChunkDecoder:
         lens = np.zeros((b,), dtype=np.int32)
         for i, (s, e) in enumerate(spans):
             n = min(e - s, self.pad_len)
-            batch[i, :n] = concat_audio[s: s + n]
+            chunk = concat_audio[s: s + n]
+            if self.chunk_transform is not None:
+                chunk = self.chunk_transform(chunk)
+            batch[i, :n] = chunk
             lens[i] = n
             # Reflect-fill the tail so snip_edges=False frames near the end
             # match an exact-length fbank (utils/fbank_ref.reflect_index).
@@ -73,7 +85,7 @@ class BatchedChunkDecoder:
                 batch[i, n: n + fill] = batch[i, n - fill: n][::-1]
         return batch, lens
 
-    def _words_from_result(self, result, enc_lens, group):
+    def _words_from_result(self, result, enc_lens, group, model):
         tokens = result.tokens.cpu().numpy()
         frames = result.frames.cpu().numpy()
         tok_logp = result.tok_logp.cpu().numpy()
@@ -85,11 +97,13 @@ class BatchedChunkDecoder:
             dur = (e - s) / SAMPLE_RATE
             out.append(beam_result_to_words(
                 tokens[i], frames[i], tok_logp[i], entropy[i],
-                num_tokens[i], enc_lens_np[i], self.model.id2token, dur,
+                num_tokens[i], enc_lens_np[i], model.id2token, dur,
                 time_offset=s / SAMPLE_RATE))
         return out
 
     def _launch(self, concat_audio, group):
+        """One batch: upload, one fbank, then each model's encoder and beam
+        search from it. Returns [(BeamResult, enc_lens)] a model."""
         # Keep the batch dimension static: pad the last group.
         padded = list(group) + [(0, 1)] * (self.max_batch - len(group))
         audio, lens = self._build_batch(concat_audio, padded)
@@ -101,24 +115,28 @@ class BatchedChunkDecoder:
         n_frames = torch.from_numpy((lens + 80) // 160).to(dev)
         with torch.no_grad():
             feats = fbank_batch(audio_dev)
-            return decode_feats(feats, n_frames, self.model)
+            return [decode_feats(feats, n_frames, m) for m in self.models]
 
     def decode_spans(self, concat_audio, spans, progress_callback=None,
                      phase="Transcription", cancel_check=None):
         """Decode [(start, end)] sample spans.
 
         Returns per-span word lists (timestamps offset by start/16000).
+        In ROVER mode returns (words_a_lists, words_b_lists).
         """
-        out = []
+        outs = [[] for _ in self.models]
         total = len(spans)
         inflight = []
 
         def drain_one():
-            group, (result, enc_lens) = inflight.pop(0)
-            out.extend(self._words_from_result(result, enc_lens, group))
+            group, launched = inflight.pop(0)
+            for (result, enc_lens), model, out in zip(launched, self.models, outs):
+                out.extend(self._words_from_result(result, enc_lens, group,
+                                                   model))
             if progress_callback:
                 progress_callback(
-                    f"PHASE:{phase}|Decoding chunks|{len(out) * 100 // total}")
+                    f"PHASE:{phase}|Decoding chunks|"
+                    f"{len(outs[0]) * 100 // total}")
 
         for base in range(0, total, self.max_batch):
             if cancel_check is not None and cancel_check():
@@ -129,4 +147,4 @@ class BatchedChunkDecoder:
                 drain_one()
         while inflight:
             drain_one()
-        return out
+        return tuple(outs) if self.model_b is not None else outs[0]

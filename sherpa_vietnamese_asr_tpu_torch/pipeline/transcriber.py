@@ -2,17 +2,19 @@
 #
 # Port of sherpa_vietnamese_asr_tpu/pipeline/transcriber.py for the ASR-only
 # configuration: same constructor shape (file_path, model, config,
-# progress_callback, cancel_check), same PHASE progress protocol and
-# .asr_phase file, same result contract. Stage order:
-#   load audio -> [VAD from a caller's vad_prob_fn, or bypass_vad] ->
-#   silence-aware 30 s/3 s chunk plan -> batched decode -> overlap merge ->
-#   suspect detect -> filler removal -> pause segmentation -> result.
+# progress_callback, cancel_check), same PHASE progress protocol, .asr_phase
+# file, resume checkpoint and result contract. Stage order:
+#   load audio -> [resume from a checkpoint] -> VAD (Silero on the model's
+#   device, a caller's vad_prob_fn, or bypass_vad) -> [preprocess] ->
+#   silence-aware 30 s/3 s chunk plan -> batched decode [per-chunk WPE]
+#   [-> ROVER over a model pair] -> overlap merge -> suspect detect ->
+#   filler removal -> pause segmentation -> result.
 # Stages not ported yet raise NotImplementedError instead of being skipped:
-# the built-in Silero VAD, ROVER, diarization, punctuation, DNSMOS quality,
-# WPE preprocessing, overlap separation and resume checkpoints.
+# diarization, punctuation, DNSMOS quality and overlap separation.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -25,6 +27,15 @@ from sherpa_vietnamese_asr_tpu_torch.pipeline.merge import (
     merge_chunks_with_overlap,
     split_long_segments,
 )
+from sherpa_vietnamese_asr_tpu_torch.pipeline.preprocessing import (
+    adaptive_peak_limit,
+    apply_wpe_dereverberation,
+    preprocess_audio,
+)
+from sherpa_vietnamese_asr_tpu_torch.pipeline.rover import (
+    rebuild_disagree_indices,
+    rover_merge_words,
+)
 from sherpa_vietnamese_asr_tpu_torch.pipeline.suspect import (
     remove_filler_words,
     suspect_detect,
@@ -34,8 +45,8 @@ from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import is_int16_exact, load_
 SAMPLE_RATE = 16000
 
 # config flags of the JAX pipeline whose stages are not ported yet
-_UNPORTED_FLAGS = ("speaker_diarization", "quality_analysis", "preprocess_wpe",
-                   "overlap_separation", "enable_resume")
+_UNPORTED_FLAGS = ("speaker_diarization", "quality_analysis",
+                   "overlap_separation")
 
 
 def segment_words_by_pause(all_words, max_words=15, pause_sec=0.8):
@@ -81,23 +92,26 @@ class TranscriberPipeline:
 
     Args:
         file_path: audio file (WAV natively; others via ffmpeg if present).
-        model: AsrModel bundle.
+        model: AsrModel bundle, or (model_a, model_b) for ROVER.
         config: dict. Supported keys: bypass_vad, skip_preprocessing,
-            preprocess_rms_normalize, max_batch (default 8),
+            preprocess_rms_normalize, preprocess_wpe, enable_resume,
+            hotword_phrases (ROVER's hotword bonus), max_batch (default 8),
             decode_transfer_dtype ("float32" | "int16").
         progress_callback: callable(str) receiving "PHASE:<Name>|<msg>|<pct>".
         cancel_check: callable() -> bool.
         vad_prob_fn: callable(audio) -> per-window speech probabilities;
-            required unless config["bypass_vad"] is set.
+            default: Silero VAD on the model's device (the checkpoint from
+            models/assets, else loudly flagged random weights).
     """
 
     def __init__(self, file_path, model: AsrModel, config=None,
                  progress_callback=None, cancel_check=None,
                  vad_prob_fn=None):
-        if isinstance(model, (tuple, list)):
-            raise NotImplementedError("ROVER (a model pair) is not ported yet")
         self.file_path = file_path
-        self.model = model
+        if isinstance(model, (tuple, list)):
+            self.model, self.model_b = model[0], model[1]
+        else:
+            self.model, self.model_b = model, None
         self.config = dict(config or {})
         for flag in _UNPORTED_FLAGS:
             if self.config.get(flag, False):
@@ -119,9 +133,11 @@ class TranscriberPipeline:
         self.vad_prob_fn = vad_prob_fn
         self._phase_file = str(file_path) + ".asr_phase"
 
-    def _decoder(self, transfer_dtype=None):
+    def _decoder(self, transfer_dtype=None, chunk_transform=None):
         return BatchedChunkDecoder(self.model, max_batch=self.max_batch,
-                                   transfer_dtype=transfer_dtype)
+                                   transfer_dtype=transfer_dtype,
+                                   model_b=self.model_b,
+                                   chunk_transform=chunk_transform)
 
     # -- progress protocol --
     def _emit(self, message: str):
@@ -149,6 +165,46 @@ class TranscriberPipeline:
             except OSError:
                 pass
 
+    # -- resume checkpoints (opt-in via config enable_resume) --
+    @property
+    def _ckpt_path(self):
+        return str(self.file_path) + ".asr_ckpt.json"
+
+    def _load_checkpoint(self):
+        if not self.config.get("enable_resume", False):
+            return None
+        try:
+            with open(self._ckpt_path, "r", encoding="utf-8") as f:
+                ck = json.load(f)
+            if ck.get("version") == 1 and ck.get("stage") == "decoded":
+                return ck
+        except (OSError, ValueError):
+            pass
+        return None
+
+    def _save_checkpoint(self, all_words, full_text, concat_len, vad_probs):
+        if not self.config.get("enable_resume", False):
+            return
+        try:
+            with open(self._ckpt_path, "w", encoding="utf-8") as f:
+                json.dump({
+                    "version": 1, "stage": "decoded",
+                    "full_text": full_text,
+                    "all_words": all_words,
+                    "concat_len": concat_len,
+                    "vad_probs": (np.asarray(vad_probs, np.float32)
+                                  .round(4).tolist()
+                                  if vad_probs is not None else None),
+                }, f, ensure_ascii=False)
+        except (OSError, TypeError):
+            pass
+
+    def _clear_checkpoint(self):
+        try:
+            os.remove(self._ckpt_path)
+        except OSError:
+            pass
+
     def _run(self, t0, timing):
         self._emit("PHASE:LoadAudio|Loading audio|0")
         t_load = time.time()
@@ -159,22 +215,24 @@ class TranscriberPipeline:
         if self._cancelled():
             return None
 
+        ckpt = self._load_checkpoint()
+        if ckpt is not None:
+            self._emit("PHASE:Transcription|Resuming from checkpoint|100")
+            return self._finish(t0, timing, total_samples, ckpt["all_words"],
+                                ckpt["full_text"])
+
         # ---- VAD -> concat -> chunk plan ----
-        bypass = self.config.get("bypass_vad", False)
-        if not bypass and self.vad_prob_fn is None:
-            raise NotImplementedError(
-                "the built-in Silero VAD is not ported yet: pass "
-                "config={'bypass_vad': True} or a vad_prob_fn")
         t_vad = time.time()
         vad_probs = None
         try:
-            if bypass:
+            if self.config.get("bypass_vad", False):
                 raise RuntimeError("VAD_BYPASSED_BY_USER")
+            prob_fn = self.vad_prob_fn or self._default_vad_prob_fn()
             self._emit("PHASE:VAD|Detecting speech|0")
 
             def cached_prob_fn(a):
                 nonlocal vad_probs
-                vad_probs = np.asarray(self.vad_prob_fn(a))
+                vad_probs = np.asarray(prob_fn(a))
                 return vad_probs
 
             segs = vad_mod.get_vad_segments(audio, cached_prob_fn,
@@ -182,8 +240,6 @@ class TranscriberPipeline:
             self._emit(f"PHASE:VAD|Found {len(segs)} speech segments|100")
             if not self.config.get("skip_preprocessing", False):
                 try:
-                    from sherpa_vietnamese_asr_tpu_torch.pipeline.preprocessing \
-                        import preprocess_audio
                     t_pre = time.time()
                     audio = preprocess_audio(
                         audio, segs, SAMPLE_RATE,
@@ -208,22 +264,46 @@ class TranscriberPipeline:
         silent = chunking.find_silent_regions(concat_audio)
         plan = chunking.plan_chunks(len(concat_audio), silent)
 
-        # ---- Batched decode ----
+        # ---- Batched decode (shared fbank in ROVER mode) ----
         t_dec = time.time()
-        self._emit("PHASE:Transcription|Transcribing|0")
-        # Lossless int16 upload for audio decoded from 16-bit PCM.
+        is_rover = self.model_b is not None
+        label = "Transcribing (ROVER)" if is_rover else "Transcribing"
+        self._emit(f"PHASE:Transcription|{label}|0")
+        chunk_transform = None
+        if self.config.get("preprocess_wpe", False):
+            def chunk_transform(chunk):
+                try:
+                    return adaptive_peak_limit(
+                        apply_wpe_dereverberation(chunk))
+                except Exception:
+                    return chunk
+        # Lossless int16 upload for audio decoded from 16-bit PCM, unless a
+        # float-valued chunk transform runs.
         transfer_dtype = self.config.get("decode_transfer_dtype")
-        if transfer_dtype is None and is_int16_exact(concat_audio):
+        if (transfer_dtype is None and chunk_transform is None
+                and is_int16_exact(concat_audio)):
             transfer_dtype = "int16"
-        decoder = self._decoder(transfer_dtype)
+        decoder = self._decoder(transfer_dtype, chunk_transform)
         spans = [(s, e) for s, e, _ in plan]
-        chunk_words = decoder.decode_spans(
+        decoded = decoder.decode_spans(
             concat_audio, spans, progress_callback=self._emit,
             cancel_check=self.cancel_check)
-        for words in chunk_words:
-            for w in words:
-                w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
-                w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
+        if is_rover:
+            words_a_lists, words_b_lists = decoded
+            hotword_phrases = self.config.get("hotword_phrases") or []
+            chunk_words = []
+            for wa, wb in zip(words_a_lists, words_b_lists):
+                for w in wa + wb:
+                    w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
+                    w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
+                merged, _ = rover_merge_words(wa, wb, hotword_phrases)
+                chunk_words.append(merged)
+        else:
+            chunk_words = decoded
+            for words in chunk_words:
+                for w in words:
+                    w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
+                    w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
 
         chunk_results = []
         for (s, e, ov), words in zip(plan, chunk_words):
@@ -241,17 +321,22 @@ class TranscriberPipeline:
         # ---- Merge overlaps, suspects, fillers ----
         t_merge = time.time()
         all_words, full_text = merge_chunks_with_overlap(chunk_results)
-        all_words = suspect_detect(all_words, audio, disagree_indices=None,
+        disagree = rebuild_disagree_indices(all_words) if is_rover else None
+        all_words = suspect_detect(all_words, audio, disagree_indices=disagree,
                                    vad_probs=vad_probs)
         all_words = remove_filler_words(all_words)
         full_text = " ".join(w["text"] for w in all_words)
         if full_text:
             full_text = full_text.capitalize()
         timing["merge_suspect"] = time.time() - t_merge
+
+        self._save_checkpoint(all_words, full_text, len(concat_audio),
+                              vad_probs)
         return self._finish(t0, timing, total_samples, all_words, full_text)
 
     def _finish(self, t0, timing, total_samples, all_words, full_text):
-        """Pause segmentation and result assembly."""
+        """Pause segmentation and result assembly. Entered either from a
+        live decode or from a resume checkpoint."""
         if self._cancelled():
             return None
         t_align = time.time()
@@ -268,7 +353,7 @@ class TranscriberPipeline:
         word_probs = [w.get("prob") for w in all_words
                       if w.get("prob") is not None]
         device = self.model.device
-        return {
+        result = {
             "text": full_text,
             "segments": final_segments,
             "timing": {
@@ -300,3 +385,24 @@ class TranscriberPipeline:
             "asr_provider_info": {"backend": "torch", "device": str(device)},
             "overlap_segments": [],
         }
+        self._clear_checkpoint()
+        return result
+
+    def _default_vad_prob_fn(self):
+        """Silero VAD on the model's device: the checkpoint from the asset
+        registry when present, else a loudly flagged random-weight model."""
+        from sherpa_vietnamese_asr_tpu_torch.models import assets, convert, silero_vad
+
+        device = self.model.device
+        loaded = assets.load_silero()
+        if loaded is not None:
+            state, cfg = loaded
+            vad = convert.silero_from_numpy(state, cfg, device=device)
+        else:
+            assets.warn_random("Silero VAD")
+            vad = silero_vad.random_silero_vad(device=device)
+
+        def prob_fn(a):
+            return silero_vad.silero_vad_probs_streamed(vad, a).cpu().numpy()
+
+        return prob_fn

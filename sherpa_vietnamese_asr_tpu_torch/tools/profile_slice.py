@@ -3,15 +3,16 @@
 Run from the repository root:
 
     python3 -m sherpa_vietnamese_asr_tpu_torch.tools.profile_slice \
-        [--dtype float32|bfloat16] [--seconds 95] [--long-seconds 600] \
+        [--dtype float32|bfloat16] [--vad] [--seconds 95] [--long-seconds 600] \
         [--trace trace.json]
 
 It builds the random-weight Zipformer-30M model (vocab 2000, beam 8) in the
 given compute dtype; bfloat16 also carries the synthetic hotword table of
 chip_smoke.py (the bf16 slice). It runs
-TranscriberPipeline(path, model, {"bypass_vad": True}) on a
-synthetic AM-tone WAV twice to warm up, then once under torch.profiler, and
-prints:
+TranscriberPipeline(path, model, {"bypass_vad": True}) -- with --vad the
+default path, TranscriberPipeline(path, model, {}), whose Silero VAD runs on
+the card with random weights -- on a synthetic AM-tone WAV twice to warm
+up, then once under torch.profiler, and prints:
   - the request's wall time and the pipeline's own `timing` split;
   - device busy time (the union of the card's kernel and copy intervals),
     its share of the wall time and the idle share (1 - busy / wall);
@@ -20,7 +21,10 @@ prints:
     score pass, depthwise conv and elementwise passes, and the wrapper's
     host time per layer (its "svt_encoder_layer" span, under the profiler)
     against the layer's device time;
-  - the warm wall time and real-time factor of a longer request;
+  - the warm wall time and real-time factor of a longer request, and its
+    device busy time and idle share from one more run under the profiler;
+  - with --vad, the VAD's own device time (silero_vad_probs_streamed alone
+    on audio of each request's length, under the profiler);
   - the card's name and power limit, as nvidia-smi prints them.
 The last line is a JSON object with these numbers.
 """
@@ -121,11 +125,43 @@ def _warm_window():
     return schedule(wait=0, warmup=1, active=1, repeat=1)
 
 
-def profile_calls(fn, reps=20):
+PROFILE_WINDOWS = 6  # profiler windows tried before a lost window raises
+LOST_WINDOW_PAUSE_S = 1.0  # wait after a lost window: losses come in bursts
+
+
+def profile_calls(fn, reps=20, expect=None):
     """Device time of one call of fn() on the card, from torch.profiler over
     `reps` calls after a warm-up step: (busy ms, {device kernel name: ms},
-    {device kernel name: launches seen over the `reps` calls}). A caller that
-    times one kernel checks its count against `reps`."""
+    {device kernel name: launches seen over the `reps` calls}).
+
+    fn must run on the card, so a window that saw no device event lost its
+    events; with `expect` (a kernel name's substring, one launch a call) a
+    window that saw another count than `reps` launches of it lost calls.
+    On an H100 the profiler loses events in bursts of a few consecutive
+    windows (PERF.md), so a lost window is discarded and taken again after
+    a pause, at most PROFILE_WINDOWS windows, and then this raises."""
+    for _ in range(PROFILE_WINDOWS):
+        events = _profile_window(fn, reps)
+        counts = collections.Counter(e.name for e in events)
+        seen = None if expect is None else sum(
+            n for name, n in counts.items() if expect in name)
+        if events and seen in (None, reps):
+            break
+        print(f"profile window lost events: {len(events)} device events, "
+              f"{seen} launches of {expect} in {reps} calls; window discarded", flush=True)
+        time.sleep(LOST_WINDOW_PAUSE_S)
+    else:
+        raise RuntimeError(f"profiler lost events in each of {PROFILE_WINDOWS} windows: "
+                           f"{seen} launches of {expect} in {reps} calls, {dict(counts)}")
+    per_name = collections.defaultdict(float)
+    for e in events:
+        per_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) / reps
+    return busy, dict(per_name), dict(counts)
+
+
+def _profile_window(fn, reps):
+    """The device events of `reps` calls of fn() after a warm-up step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,18 +174,45 @@ def profile_calls(fn, reps=20):
             fn()
         torch.cuda.synchronize()
         prof.step()
+    return _device_events(prof)
+
+
+def _profiled_busy(fn):
+    """(device busy ms, wall ms) of one call of fn() under the profiler,
+    after a warm-up step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=_warm_window()) as prof:
+        torch.ones(1, device="cuda").add_(1)  # the warm-up step
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
     events = _device_events(prof)
-    per_name = collections.defaultdict(float)
-    counts = collections.Counter(e.name for e in events)
-    for e in events:
-        per_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
-    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) / reps
-    return busy, dict(per_name), dict(counts)
+    return _busy_ms([(e.time_range.start, e.time_range.end) for e in events]), wall * 1e3
+
+
+def vad_device_ms(audio, dev):
+    """Device time of the default VAD (random Silero weights, as the
+    pipeline's) on `audio`: (busy ms, {device kernel name: ms}) a call."""
+    from sherpa_vietnamese_asr_tpu_torch.models import silero_vad
+
+    vad = silero_vad.random_silero_vad(device=dev)
+    busy, per_name, _ = profile_calls(
+        lambda: silero_vad.silero_vad_probs_streamed(vad, audio), reps=3)
+    return busy, per_name
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--vad", action="store_true",
+                    help="the default path: Silero VAD on (random weights)")
     ap.add_argument("--seconds", type=float, default=95.0)
     ap.add_argument("--long-seconds", type=float, default=600.0)
     ap.add_argument("--top", type=int, default=12)
@@ -171,7 +234,7 @@ def main(argv=None):
                              device=dev)
     if args.dtype == "bfloat16":
         model.hotword_tables = synthetic_hotword_tables(model.rnnt_cfg.vocab_size, dev)
-    config = {"bypass_vad": True}
+    config = {} if args.vad else {"bypass_vad": True}
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "request.wav")
@@ -196,9 +259,15 @@ def main(argv=None):
         TranscriberPipeline(long_path, model, config=config).run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        TranscriberPipeline(long_path, model, config=config).run()
+        long_res = TranscriberPipeline(long_path, model, config=config).run()
         torch.cuda.synchronize()
         long_wall = time.perf_counter() - t0
+        long_busy, long_profiled_ms = _profiled_busy(
+            lambda: TranscriberPipeline(long_path, model, config=config).run())
+        vad_ms = None
+        if args.vad:
+            vad_ms = {seconds: vad_device_ms(am_tone(seconds, seed), dev)
+                      for seconds, seed in ((args.seconds, 3), (args.long_seconds, 4))}
 
     if args.trace:
         prof.export_chrome_trace(args.trace)
@@ -233,7 +302,15 @@ def main(argv=None):
         print(f"whole-layer kernel per layer: host {layer['host_ms_per_layer']:.3f} ms "
               f"(wrapper span) vs device {layer['device_ms_per_layer']:.3f} ms")
     print(f"request {args.long_seconds} s warm: wall {long_wall:.3f} s, "
-          f"{args.long_seconds / long_wall:.1f}x real time")
+          f"{args.long_seconds / long_wall:.1f}x real time, "
+          f"timing {json.dumps(long_res['timing'])}")
+    print(f"request {args.long_seconds} s under the profiler: wall {long_profiled_ms:.3f} ms, "
+          f"device busy {long_busy:.3f} ms, idle share {1 - long_busy / long_profiled_ms:.3f}")
+    if vad_ms:
+        for seconds, (busy_ms, per_name) in vad_ms.items():
+            print(f"VAD alone, {seconds} s: device {busy_ms:.3f} ms: " + ", ".join(
+                f"{name[:60]} {ms:.3f}" for name, ms in sorted(
+                    per_name.items(), key=lambda kv: -kv[1])[:4]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -243,7 +320,11 @@ def main(argv=None):
         "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "timing": res["timing"],
         "top_kernels_ms": {name: ms for name, ms in top}, "layer_kernel": layer,
-        "long_request_s": args.long_seconds, "long_wall_s": long_wall}))
+        "long_request_s": args.long_seconds, "long_wall_s": long_wall,
+        "long_timing": long_res["timing"], "long_profiled_wall_ms": long_profiled_ms,
+        "long_device_busy_ms": long_busy,
+        "long_idle_share": 1 - long_busy / long_profiled_ms, "vad": args.vad,
+        "vad_device_ms": vad_ms and {s: ms for s, (ms, _) in vad_ms.items()}}))
 
 
 if __name__ == "__main__":

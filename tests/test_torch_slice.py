@@ -108,9 +108,14 @@ def test_tiny_model_decode_and_pipeline_match_jax(tmp_path):
     assert phases[0].startswith("PHASE:LoadAudio") and \
         phases[-1] == "PHASE:Complete|Done|100"
     assert not os.path.exists(path + ".asr_phase")
-    # the built-in VAD is not ported: asking for it raises, never falls back
-    with pytest.raises(NotImplementedError):
-        TranscriberPipeline(path, tm).run()
+    # The default config runs the built-in Silero VAD on the model's device
+    # (random weights here, loudly flagged): no fallback to silence-based
+    # chunking.
+    phases = []
+    res = TranscriberPipeline(path, tm, config={"max_batch": 2},
+                              progress_callback=phases.append).run()
+    assert res["timing"]["vad"] > 0 and "PHASE:VAD|Detecting speech|0" in phases
+    assert not any("VAD failed" in p for p in phases)
 
 
 def test_true_size_stack_reproduces_frozen_fixture():
@@ -171,8 +176,8 @@ def test_port_imports_never_load_jax():
     ({"bypass_vad": True, "speaker_diarization": True}, False),
     ({"bypass_vad": True, "restore_punctuation": True}, False),
     ({"bypass_vad": True, "quality_analysis": True}, False),
-    ({"bypass_vad": True, "enable_resume": True}, False),
-    ({"bypass_vad": True}, True),
+    ({"bypass_vad": True, "overlap_separation": True}, False),
+    ({"bypass_vad": True, "speaker_diarization": True}, True),
 ])
 def test_unported_stages_raise(config, model_pair):
     """Stages the port does not have yet raise instead of being skipped."""
