@@ -52,7 +52,19 @@ Phases (any failure raises and the script exits non-zero):
      on stacks 0, 1 and 5 a forward, kernel 2 on stacks 2-4, encoder cosine
      against float32); enable_resume stopped after the decode and run again
      on the golden file. Every wall time beside the card's name and power
-     limit.
+     limit;
+  8. diarization: a full-width PureDiarizer (PyanNet + ResNet34, random
+     weights from a torch.Generator seeded 0) on the card against its CPU
+     twin on 20 s of two alternating tones (powerset argmax agreeing on
+     >= 99.9% of frames, every valid slot's embedding at cosine >= 0.9999,
+     identical segments where the argmax agrees everywhere, and the card
+     with its per-chunk CMVN dropped failing the embedding gate); the CLI
+     `transcribe <100 s wav> --model <dir> --diarize` on a directory written
+     by the port's exporters (speakers in the .asr.json, the models read
+     from the directory), and the facade's background pass giving the
+     synchronous path's speakers; a warm 600 s PureDiarizer.process (wall,
+     device busy, one superblock's device time by part) with kernel 1
+     launched once a superblock.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks); the last line is
@@ -269,6 +281,19 @@ def fbank_faults(fbank, cfg):
             "frames_scaled_1.001": lambda frames: fbank._logmel_plain(frames * 1.001, cfg)}
 
 
+def fbank_bound(n_frames, cfg, dev):
+    """The fbank kernel's bound on n_frames frames: each frame read once,
+    each log-mel written once, the tables once; operations of a radix-2 FFT
+    of the n_fft/2 complex points (5 h log2 h), the real split and power (17
+    a bin), the compact mel weights (2 each) and a log per output."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+
+    tables = fbank._kernel_constants(cfg, dev)
+    h = cfg.n_fft // 2
+    flops = n_frames * (5 * h * np.log2(h) + 17 * h + 2 * tables[3].numel() + cfg.num_bins)
+    return bound(n_frames * 4 * (cfg.n_fft + cfg.num_bins) + nbytes(*tables), flops, PEAK_FP32)
+
+
 def check_fbank(dev):
     """The fbank kernel against its twin at the three configs, on frames made
     on the card from fbank_audio(), at the full batch and at a ragged frame
@@ -341,16 +366,8 @@ def check_fbank(dev):
             f"{batch_kernel:.4f} ms and framing {batch_busy - batch_kernel:.4f} ms; "
             f"device kernels " + ", ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(
                 batch_dev.items(), key=lambda kv: -kv[1])))
-        # Each frame read once, each log-mel written once, the tables once;
-        # operations of a radix-2 FFT of the n_fft/2 complex points
-        # (5 h log2 h), the real split and power (17 a bin), the compact mel
-        # weights (2 each) and a log per output.
-        tables = fbank._kernel_constants(cfg, dev)
-        h = cfg.n_fft // 2
-        flops = frames.shape[0] * (5 * h * np.log2(h) + 17 * h + 2 * tables[3].numel()
-                                   + cfg.num_bins)
-        summary.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bound(
-            nbytes(frames, *tables) + frames.shape[0] * cfg.num_bins * 4, flops, PEAK_FP32))
+        summary.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       **fbank_bound(frames.shape[0], cfg, dev))
     for n_fft in FBANK_OTHER_N_FFT:  # the kernel's other instantiations, on two chunks
         cfg = dataclasses.replace(fbank.ASR_FBANK, n_fft=n_fft, frame_length=min(400, n_fft))
         fr = fbank._frame_signal(audio_dev[:2], cfg).reshape(-1, n_fft).contiguous()
@@ -1525,6 +1542,323 @@ def phase_default_path(dev, model, model68, model68_16, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+DIAR_TWIN_SECONDS = 20  # 12 windows: one 16-window superblock
+DIAR_CLI_SECONDS = 100
+DIAR_LONG_SECONDS = 600  # 592 windows: 10 superblocks of 64
+DIAR_ARGMAX_AGREE = 0.999  # share of frames whose powerset argmax agrees, card vs CPU
+DIAR_COSINE = 0.9999  # every valid slot's embedding, card vs CPU
+# Random PyanNet weights pick one powerset class almost everywhere: the
+# twin check adds this to the classifier's bias (silence, the three single
+# speakers, the pairs) so that chunks have the clean single-speaker frames
+# clustering trains on. Random ResNet34 embeddings lie close together, so
+# it clusters with an AHC threshold of half their median distance and
+# VBx's fa at DIAR_FA: at the default fa of 0.07 VBx merges them back into
+# one speaker, at 1.0 they stay two.
+DIAR_SPEAKER_BIAS = (0.0, 2.0, 2.0, -2.0, -2.0, -2.0, -2.0)
+DIAR_FA = 1.0
+
+
+def diarization_audio(seconds, seed=0):
+    """Two alternating 'speakers': 3 s tones at 200 Hz and 340 Hz with AM
+    at 2 and 3.1 Hz, 1 s gaps, noise at 0.01 (tests/test_golden_aux.py)."""
+    t = np.arange(SR * seconds) / SR
+    x = np.zeros(SR * seconds, np.float32)
+    for k in range(seconds // 4):
+        f0, am = (200.0, 2.0) if k % 2 == 0 else (340.0, 3.1)
+        s, e = k * 4 * SR, (k * 4 + 3) * SR
+        tt = t[s:e]
+        x[s:e] = 0.3 * np.sin(2 * np.pi * f0 * tt) * (0.5 + 0.5 * np.sin(2 * np.pi * am * tt))
+    x += 0.01 * np.random.default_rng(seed).standard_normal(len(x)).astype(np.float32)
+    return x
+
+
+def diarizer_pair(dev):
+    """A full-width PureDiarizer on the card, its weights drawn from a
+    torch.Generator seeded 0 (the classifier's bias shifted by
+    DIAR_SPEAKER_BIAS), and its twin on the CPU with the same weights."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet, random_pyannet
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
+        ResNetSpeaker,
+        random_resnet_speaker,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import PureDiarizer
+
+    gen = torch.Generator().manual_seed(0)
+    seg = random_pyannet(device=dev, generator=gen)
+    emb = random_resnet_speaker(device=dev, generator=gen)
+    with torch.no_grad():
+        seg.classifier.bias.add_(torch.tensor(DIAR_SPEAKER_BIAS, device=dev))
+    twins = []
+    for module, cls in ((seg, PyanNet), (emb, ResNetSpeaker)):
+        twin = cls(module.cfg)
+        twin.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+        twins.append(twin.to("cpu"))
+    return (PureDiarizer(seg_model=seg, emb_model=emb, device=dev),
+            PureDiarizer(seg_model=twins[0], emb_model=twins[1], device="cpu"))
+
+
+def recorded_process(diar, audio):
+    """(segments, (binarized, embeddings)) of diar.process(audio), keeping
+    the fused stage's outputs."""
+    kept = []
+    fused = diar._segment_and_embed_fused
+
+    def keep(a, cb=None):
+        out = fused(a, cb)
+        kept.append(out)
+        return out
+
+    diar._segment_and_embed_fused = keep
+    try:
+        segments = diar.process(audio)
+    finally:
+        del diar._segment_and_embed_fused
+    return segments, (kept[0][0], kept[0][2])
+
+
+def embedding_cosines(emb, ref):
+    """Cosine of each slot valid in both, and whether the valid masks agree."""
+    valid, valid_ref = ~np.isnan(emb[..., 0]), ~np.isnan(ref[..., 0])
+    both = valid & valid_ref
+    a, b = emb[both].astype(np.float64), ref[both].astype(np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    return cos, bool((valid == valid_ref).all())
+
+
+def argmax_margins(diar_cpu, audio, flipped_windows):
+    """The CPU twin's margin between its two best powerset classes at the
+    frames of the flipped windows where the card chose another class."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_pure as dp
+
+    with torch.no_grad():
+        wins = []
+        for w in flipped_windows:
+            chunk = np.zeros(dp.CHUNK_SAMPLES, np.float32)
+            piece = audio[w * dp.STEP_SAMPLES: w * dp.STEP_SAMPLES + dp.CHUNK_SAMPLES]
+            chunk[: len(piece)] = np.rint(piece * 32768.0) / 32768.0
+            wins.append(chunk)
+        logits = diar_cpu.seg_model(torch.from_numpy(np.stack(wins))).numpy()
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def diarization_twin(card_diar, cpu_diar):
+    """(a) 20 s on the card against the CPU twin: the powerset argmax, every
+    valid slot's embedding, and the final segments where the argmax agrees
+    everywhere; then the card with its per-chunk CMVN dropped must fail the
+    embedding gate."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_pure as dp
+
+    from scipy.spatial.distance import pdist
+
+    audio = diarization_audio(DIAR_TWIN_SECONDS)
+    _, _, emb0 = card_diar._segment_and_embed_fused(audio)
+    threshold = float(np.median(pdist(dp.l2_norm(emb0[~np.isnan(emb0[..., 0])])))) / 2
+    defaults = card_diar.threshold, card_diar.fa
+    for diar in (card_diar, cpu_diar):
+        diar.threshold, diar.fa = threshold, DIAR_FA
+    try:
+        segs_c, (bin_c, emb_c) = recorded_process(card_diar, audio)
+        segs_h, (bin_h, emb_h) = recorded_process(cpu_diar, audio)
+    finally:
+        card_diar.threshold, card_diar.fa = defaults
+    frame_agree = (bin_c == bin_h).all(axis=-1)
+    agree = float(frame_agree.mean())
+    cos, same_valid = embedding_cosines(emb_c, emb_h)
+    msg = (f"diarization twin: {bin_c.shape[0]} windows, powerset argmax agrees on "
+           f"{agree:.6f} of {frame_agree.size} frames (gate {DIAR_ARGMAX_AGREE}), "
+           f"embeddings of {cos.size} valid slots cosine min {cos.min():.8f} "
+           f"(gate {DIAR_COSINE}), valid masks equal {same_valid}")
+    if agree < 1.0:
+        windows = sorted(set(np.argwhere(~frame_agree)[:, 0].tolist()))
+        margins = argmax_margins(cpu_diar, audio, windows)
+        flipped = margins[~frame_agree[windows]]
+        msg += f"; flipped frames' CPU margins {np.round(flipped, 6).tolist()[:12]}"
+    log(msg)
+    assert agree >= DIAR_ARGMAX_AGREE, "diarization: card and CPU argmax disagree"
+    assert same_valid and cos.size and cos.min() >= DIAR_COSINE, \
+        "diarization: card and CPU embeddings disagree"
+    if agree == 1.0:
+        same = len(segs_c) == len(segs_h) and all(
+            a["speaker"] == b["speaker"] and abs(a["start"] - b["start"]) <= 1e-6
+            and abs(a["end"] - b["end"]) <= 1e-6 for a, b in zip(segs_c, segs_h))
+        log(f"diarization twin: AHC threshold {threshold:.6f}, fa {DIAR_FA}, segments card "
+            f"{len(segs_c)} "
+            f"CPU {len(segs_h)}, speakers {sorted({s['speaker'] for s in segs_c})}, "
+            f"identical {same}")
+        assert same and segs_c, "diarization: card and CPU segments differ"
+        assert len({s["speaker"] for s in segs_c}) >= 2, "diarization twin: one speaker"
+
+    chunk_fbank = dp._chunk_fbank
+
+    def no_cmvn(x, n_windows):
+        fb = dp.fbank_ops.compute_fbank(x, dp._SB_FBANK)
+        return fb.unfold(0, dp.FRAMES_PER_CHUNK, dp._FB_FRAMES_PER_STEP)[:n_windows] \
+            .transpose(1, 2)
+
+    dp._chunk_fbank = no_cmvn
+    try:
+        _, _, emb_f = card_diar._segment_and_embed_fused(audio)
+    finally:
+        dp._chunk_fbank = chunk_fbank
+    cos_f, _ = embedding_cosines(emb_f, emb_h)
+    log(f"diarization twin: planted fault, per-chunk CMVN dropped on the card: cosine "
+        f"min {cos_f.min():.6f} median {float(np.median(cos_f)):.6f}")
+    assert cos_f.min() < DIAR_COSINE, "diarization: the CMVN fault passes the embedding gate"
+
+
+def diarization_cli(dev, model, card_diar, tmp):
+    """(b) `transcribe <100 s wav> --model <dir> --diarize` in-process, the
+    directory written by the port's exporters from `model` and the card
+    diarizer's weights; then the facade's background pass on the same file
+    must give the synchronous path's speakers."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_diar import (
+        export_diarization_files,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_rnnt import export_asr_dir
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization import SpeakerDiarizer
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+
+    model_dir = os.path.join(tmp, "zipformer-30m-rnnt-6000h")
+    export_asr_dir(model, model_dir)
+    export_diarization_files(card_diar.seg_model, card_diar.emb_model, model_dir)
+    path = os.path.join(tmp, "two_speakers_100s.wav")
+    write_wav(path, diarization_audio(DIAR_CLI_SECONDS), SR)
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    rc, out, err = run_cli(["transcribe", path, "--model", model_dir, "--diarize", "-v"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    assert rc == 0, f"cli --diarize exit {rc}: {err[-2000:]}"
+    assert "RANDOM weights" not in "".join(line for line in err.splitlines()
+                                           if "diariz" in line or "embedding" in line), \
+        "the diarization models did not load from the directory"
+    phases = [line for line in err.splitlines() if line.startswith("PHASE:")]
+    assert "PHASE:Diarization|Done|100" in phases, "diarization did not run"
+    with open(path + ".asr.json", encoding="utf-8") as f:
+        data = json.load(f)
+    entries = data["segments"]
+    speakers = sorted({e["speaker_id"] for e in entries if e["type"] == "speaker"})
+    log(f"diarization cli: wall {wall:.3f} s, diarization {data['timing']['diarization']:.3f} s, "
+        f"{len(entries)} entries, speakers {speakers}, launches {launches} ({card()})")
+    assert entries and entries[0]["type"] == "speaker", "cli: text before any speaker"
+    assert any(e["type"] == "text" and e["text"] for e in entries), "cli: no text"
+
+    config = {"speaker_diarization": True}
+    sync = TranscriberPipeline(path, model, config, diarizer=card_diar).run()
+    facade = SpeakerDiarizer()
+    facade._backend = card_diar
+    phases = []
+    t0 = time.perf_counter()
+    background = TranscriberPipeline(path, model, config, diarizer=facade,
+                                     progress_callback=phases.append).run()
+    torch.cuda.synchronize()
+    assert "PHASE:Transcription|Transcribing (diarization in background)|0" in phases
+    assert sync["has_speaker_diarization"] and background["has_speaker_diarization"]
+    key = [(s["speaker_id"], round(s["start"], 6), round(s["end"], 6))
+           for s in sync["speaker_segments_raw"]]
+    got = [(s["speaker_id"], round(s["start"], 6), round(s["end"], 6))
+           for s in background["speaker_segments_raw"]]
+    log(f"diarization facade: background pass wall {time.perf_counter() - t0:.3f} s, "
+        f"{len(got)} speaker segments, equal to the synchronous path's {got == key}")
+    assert got == key, "diarization: the background pass gave other speakers"
+    assert all(s.get("speaker") for s in background["segments"])
+    return launches
+
+
+def diarization_timing(card_diar):
+    """(c) A warm 600 s PureDiarizer.process on the card: wall, device busy,
+    and one full superblock's device time by part; (d) kernel 1's launches
+    in that process() (one a superblock)."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_pure as dp
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import (
+        _profiled_busy,
+        diarization_parts,
+    )
+
+    audio = diarization_audio(DIAR_LONG_SECONDS)
+    card_diar.process(audio)  # warm
+    torch.cuda.synchronize()
+    fbank.launches = 0
+    t0 = time.perf_counter()
+    segments = card_diar.process(audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_kernel1 = fbank.launches
+    n_windows = len(card_diar._window_starts(len(audio)))
+    blocks = -(-n_windows // card_diar.superblock_windows)
+    busy, profiled = _profiled_busy(lambda: card_diar.process(audio))
+    torch.cuda.reset_peak_memory_stats()
+    card_diar.process(audio)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"diarization {DIAR_LONG_SECONDS} s: warm process wall {wall:.3f} s, {n_windows} "
+        f"windows in {blocks} "
+        f"superblocks, {len(segments)} segments, kernel 1 launches {n_kernel1}; under the "
+        f"profiler wall {profiled:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / profiled:.3f}; peak memory {peak:.2f} GiB ({card()})")
+    parts = diarization_parts(card_diar, audio)
+    k1 = fbank_bound(parts["frames"], dp._SB_FBANK, card_diar.device)
+    log(f"diarization superblock ({card_diar.superblock_windows} windows) device ms by part "
+        "(CUDA events around back-to-back calls): "
+        + ", ".join(f"{name} {ms:.3f}" for name, ms in parts.items() if name != "frames")
+        + f"; kernel 1 at F {parts['frames']}: bound {k1['bound_ms']:.4f} ms by {k1['bound_by']}")
+    cfg = card_diar.emb_cfg
+    flops = resnet_flops(cfg, dp.FRAMES_PER_CHUNK) * card_diar.superblock_windows
+    log(f"diarization ResNet34: {flops / 1e12:.3f} TFLOP a superblock, "
+        f"{flops / (parts['resnet'] * 1e-3) / 1e12:.1f} TFLOP/s (float32 peak "
+        f"{PEAK_FP32 / 1e12:.0f}, bound {flops / PEAK_FP32 * 1e3:.3f} ms)")
+    assert segments, "diarization 600 s: no segments"
+    assert n_kernel1 == blocks, f"kernel 1 ran {n_kernel1} times for {blocks} superblocks"
+    return {"fbank_logmel": n_kernel1}
+
+
+def resnet_flops(cfg, frames):
+    """Operations (2 per multiply-add) of the ResNet34 frame encoder on one
+    [frames, num_mels] window."""
+    f, t = cfg.num_mels, frames
+    total = 2 * 9 * cfg.base_channels * f * t  # conv1, one input channel
+    c_in = cfg.base_channels
+    for stage, n_blocks in enumerate(cfg.blocks):
+        c_out = cfg.base_channels * 2 ** stage
+        for b in range(n_blocks):
+            if stage > 0 and b == 0:
+                f, t = (f - 1) // 2 + 1, (t - 1) // 2 + 1
+                total += 2 * c_in * c_out * f * t  # the 1x1 shortcut
+            total += 2 * 9 * c_in * c_out * f * t + 2 * 9 * c_out * c_out * f * t
+            c_in = c_out
+    return total
+
+
+def phase_diarization(dev, model, tmp):
+    """Diarization on the card: (a) against its CPU twin, (b) the CLI with
+    --diarize and the facade's background pass, (c) a warm 600 s
+    PureDiarizer.process, (d) kernel 1's launches on the diarization path."""
+    t0 = time.perf_counter()
+    card_diar, cpu_diar = diarizer_pair(dev)
+    log(f"diarization: PyanNet + ResNet34 random (torch.Generator seed 0) on {dev} and the "
+        f"CPU in {time.perf_counter() - t0:.1f} s")
+    diarization_twin(card_diar, cpu_diar)
+    cli_launches = diarization_cli(dev, model, card_diar, tmp)
+    assert all(n > 0 for n in cli_launches.values()), "a kernel never ran on the CLI path"
+    return diarization_timing(card_diar)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -1574,7 +1908,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         launches_default = phase_default_path(dev, model, model68, model68_16, tmp)
     log("PHASE default path ok")
-    paths = (launches, launches_bf16, launches_probe, launches_default)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_diar = phase_diarization(dev, model, tmp)
+    log("PHASE diarization ok")
+    paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar)
     for k in kernels:  # each kernel's count from the first path that runs it
         k["route"] = "cuda"
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)

@@ -4,13 +4,17 @@
 # (_load_model, cmd_transcribe and their arguments):
 #
 #   python -m sherpa_vietnamese_asr_tpu_torch.cli transcribe <audio>
-#       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad] ...
+#       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad]
+#       [--diarize [--num-speakers N]] ...
 #       -> prints the text, writes <audio>.asr.json
 #
 # It runs on the card unless --device cpu is given; without a card the
-# default raises. --diarize, --punctuate and --quality raise
-# NotImplementedError until their stages are ported; the other subcommands
-# of the reference (serve, warmup, calibrate, ...) are not ported yet.
+# default raises. --diarize runs the pure pyannote-Community-1 diarizer
+# (pipeline/diarization_pure.PureDiarizer) on the same device, its models
+# from the --model directory when it holds them. --punctuate and --quality
+# raise NotImplementedError until their stages are ported; the other
+# subcommands of the reference (serve, warmup, calibrate, ...) are not
+# ported yet.
 
 from __future__ import annotations
 
@@ -61,8 +65,7 @@ def cmd_transcribe(args):
         TranscriberPipeline,
     )
 
-    for flag, stage in (("diarize", "speaker diarization"),
-                        ("punctuate", "punctuation restoration"),
+    for flag, stage in (("punctuate", "punctuation restoration"),
                         ("quality", "DNSMOS quality analysis")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {stage} is not ported yet")
@@ -89,6 +92,7 @@ def cmd_transcribe(args):
                                          device=device))
 
     config = {
+        "speaker_diarization": args.diarize,
         "max_batch": args.max_batch,
         "preprocess_rms_normalize": args.rms_normalize,
         "preprocess_wpe": args.wpe,
@@ -100,8 +104,18 @@ def cmd_transcribe(args):
         if args.verbose and msg.startswith("PHASE:"):
             print(msg, file=sys.stderr)
 
+    diarizer = None
+    if args.diarize:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import (
+            PureDiarizer,
+        )
+        diarizer = PureDiarizer(
+            num_speakers=args.num_speakers or -1,
+            model_dir=args.model if os.path.isdir(args.model) else None,
+            device=device)
     pipeline = TranscriberPipeline(args.audio, model, config,
-                                   progress_callback=progress)
+                                   progress_callback=progress,
+                                   diarizer=diarizer)
     t0 = time.time()
     if args.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -155,6 +169,7 @@ def build_parser():
                         "runs every kernel's plain PyTorch twin")
     t.add_argument("--rover", action="store_true")
     t.add_argument("--diarize", action="store_true")
+    t.add_argument("--num-speakers", type=int, default=0)
     t.add_argument("--punctuate", action="store_true")
     t.add_argument("--quality", action="store_true",
                    help="DNSMOS audio-quality analysis")

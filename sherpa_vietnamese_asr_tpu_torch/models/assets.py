@@ -1,7 +1,7 @@
 # Copied from sherpa_vietnamese_asr_tpu/models/assets.py (host-only; only the package path changes).
-# Not copied yet: load_segmentation, load_embedding_split, load_campp_asset,
-# load_convtasnet_asset, load_vibert_asset and load_dnsmos_asset, which come
-# with the slices that port their models; load_silero returns the port's
+# Not copied yet: load_campp_asset, load_convtasnet_asset, load_vibert_asset
+# and load_dnsmos_asset, which come with the slices that port their models;
+# load_silero, load_segmentation and load_embedding_split return the port's
 # (state, cfg).
 # Central model-asset registry: pinned identities, SHA256 verification,
 # discovery, cached loading, and the random-weight policy.
@@ -271,6 +271,28 @@ def load_silero(verify: bool = True):
     )
     return _cached("silero-vad", lambda: load_silero_vad(
         paths["silero_vad_16k_op15.onnx"]))
+
+
+def load_segmentation(verify: bool = True):
+    paths = asset_paths("segmentation", verify)
+    if paths is None:
+        return None
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import load_pyannet
+    return _cached("segmentation", lambda: load_pyannet(
+        paths["segmentation-community-1.onnx"]))
+
+
+def load_embedding_split(verify: bool = True):
+    paths = asset_paths("embedding-split", verify)
+    if paths is None:
+        return None
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import (
+        load_resnet_speaker,
+    )
+    return _cached("embedding-split", lambda: load_resnet_speaker(
+        paths["embedding_encoder.onnx"],
+        paths["resnet_seg_1_weight.npy"],
+        paths["resnet_seg_1_bias.npy"]))
 
 
 def asr_model_dir(key: str = "zipformer-30m"):

@@ -4,8 +4,10 @@
 # d_out] linears, HWIO conv kernels and [K, D] depthwise kernels. This module
 # takes such trees as nested dicts of numpy arrays (np.asarray of every leaf)
 # and loads them into ZipformerEncoder / Decoder / Joiner (and the Silero
-# VAD tree into models/silero_vad.SileroVad) with every layout change done
-# here, so the same weights run through both packages.
+# VAD tree into models/silero_vad.SileroVad, the PyanNet and ResNet34
+# diarization trees into models/pyannet.PyanNet and
+# models/resnet_speaker.ResNetSpeaker) with every layout change done here, so
+# the same weights run through both packages.
 
 from __future__ import annotations
 
@@ -16,6 +18,11 @@ from sherpa_vietnamese_asr_tpu_torch.models.registry import (
     AsrModel,
     build_modules,
     model_device,
+)
+from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
+    ResNetSpeaker,
+    ResNetSpeakerConfig,
 )
 from sherpa_vietnamese_asr_tpu_torch.models.rnnt import RnntConfig
 from sherpa_vietnamese_asr_tpu_torch.models.silero_vad import SileroVad, SileroVadConfig
@@ -139,3 +146,84 @@ def silero_from_numpy(state, cfg: SileroVadConfig, device="cuda") -> SileroVad:
     vad = SileroVad(cfg)
     _load(vad, state)
     return vad.to(device)
+
+
+def pyannet_state_dict(params) -> dict:
+    """JAX PyanNet tree -> PyanNet state dict (numpy values): conv kernels
+    [K, C_in, C_out] -> [C_out, C_in, K], linears and LSTM weights
+    transposed, each LSTM direction's one bias in bias_ih (bias_hh zero)."""
+    out = {"sincnet.conv1d.0.low_hz_": np.asarray(params["sinc_low_hz"]),
+           "sincnet.conv1d.0.band_hz_": np.asarray(params["sinc_band_hz"]),
+           "sincnet.wav_norm1d.weight": np.asarray(params["wav_norm"]["scale"]),
+           "sincnet.wav_norm1d.bias": np.asarray(params["wav_norm"]["bias"])}
+    for i, norm in enumerate(params["norms"]):
+        out[f"sincnet.norm1d.{i}.weight"] = np.asarray(norm["scale"])
+        out[f"sincnet.norm1d.{i}.bias"] = np.asarray(norm["bias"])
+    for i, conv in enumerate(params["convs"]):
+        out[f"sincnet.conv1d.{i + 1}.weight"] = np.asarray(conv["weight"]).transpose(2, 1, 0)
+        out[f"sincnet.conv1d.{i + 1}.bias"] = np.asarray(conv["bias"])
+    for k, layer in enumerate(params["lstm"]):
+        for suffix, direction in (("", "fwd"), ("_reverse", "bwd")):
+            p = layer[direction]
+            out[f"lstm.weight_ih_l{k}{suffix}"] = np.asarray(p["wi"]).T
+            out[f"lstm.weight_hh_l{k}{suffix}"] = np.asarray(p["wh"]).T
+            out[f"lstm.bias_ih_l{k}{suffix}"] = np.asarray(p["b"])
+            out[f"lstm.bias_hh_l{k}{suffix}"] = np.zeros_like(np.asarray(p["b"]))
+    _linear(out, "linear.0", params["linear1"])
+    _linear(out, "linear.1", params["linear2"])
+    _linear(out, "classifier", params["classifier"])
+    return out
+
+
+def _batch_norm(out, prefix, p):
+    for src, dst in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                     ("var", "running_var")):
+        out[f"{prefix}.{dst}"] = np.asarray(p[src])
+    out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_tfio(a):
+    """JAX ResNet conv kernel [kT, kF, I, O] -> torch [O, I, kF, kT]."""
+    return np.asarray(a).transpose(3, 2, 1, 0)
+
+
+def resnet_state_dict(params) -> dict:
+    """JAX ResNet34 tree -> ResNetSpeaker state dict (numpy values): conv
+    kernels [kT, kF, I, O] -> [O, I, kF, kT], BatchNorm (scale, bias, mean,
+    var) -> (weight, bias, running_mean, running_var), the projection as
+    resnet.seg_1."""
+    out = {"resnet.conv1.weight": _conv_tfio(params["conv1"])}
+    _batch_norm(out, "resnet.bn1", params["bn1"])
+    for stage, blocks in enumerate(params["stages"]):
+        for j, blk in enumerate(blocks):
+            pre = f"resnet.layer{stage + 1}.{j}"
+            out[f"{pre}.conv1.weight"] = _conv_tfio(blk["conv1"])
+            _batch_norm(out, f"{pre}.bn1", blk["bn1"])
+            out[f"{pre}.conv2.weight"] = _conv_tfio(blk["conv2"])
+            _batch_norm(out, f"{pre}.bn2", blk["bn2"])
+            if "down_conv" in blk:
+                out[f"{pre}.shortcut.0.weight"] = _conv_tfio(blk["down_conv"])
+                _batch_norm(out, f"{pre}.shortcut.1", blk["down_bn"])
+    out["resnet.seg_1.weight"] = np.asarray(params["proj"]["weight"])
+    out["resnet.seg_1.bias"] = np.asarray(params["proj"]["bias"])
+    return out
+
+
+def pyannet_from_numpy(state, cfg: PyanNetConfig, device="cuda") -> PyanNet:
+    """A PyanNet on `device`, the card by default (raises without one), from
+    a PyanNet state dict of numpy arrays (pyannet_state_dict, or
+    models/onnx_import.load_pyannet)."""
+    device = model_device(device)
+    model = PyanNet(cfg)
+    _load(model, state)
+    return model.to(device)
+
+
+def resnet_from_numpy(state, cfg: ResNetSpeakerConfig, device="cuda") -> ResNetSpeaker:
+    """A ResNetSpeaker on `device`, the card by default (raises without
+    one), from a ResNetSpeaker state dict of numpy arrays (resnet_state_dict,
+    or models/onnx_import.load_resnet_speaker)."""
+    device = model_device(device)
+    model = ResNetSpeaker(cfg)
+    _load(model, state)
+    return model.to(device)

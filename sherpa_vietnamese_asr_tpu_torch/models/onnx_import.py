@@ -16,9 +16,12 @@
 # stored, except the ConvNeXt pointwise convs ([O, I, 1, 1] -> [O, I]).
 # The loaders return state dicts of numpy float32 arrays, never modules:
 # load_zipformer_rnnt for an ASR model directory, load_silero_vad for
-# silero_vad_16k_op15.onnx. The other loaders of the reference
-# (load_pyannet, load_resnet_speaker, load_vibert, load_dnsmos, load_campp,
-# load_convtasnet) come with the slices that run those models.
+# silero_vad_16k_op15.onnx, load_pyannet for segmentation-community-1.onnx
+# and load_resnet_speaker for embedding_encoder.onnx with its projection's
+# .npy files (both modules mirror the upstream trees, so their name maps are
+# the identity). The other loaders of the reference (load_vibert,
+# load_dnsmos, load_campp, load_convtasnet) come with the slices that run
+# those models.
 
 from __future__ import annotations
 
@@ -643,4 +646,110 @@ def load_silero_vad(path, cfg=None):
         cfg = SileroVadConfig(stft_filter_len=filt, n_freq=n_freq,
                               encoder_channels=tuple(channels),
                               lstm_dim=wh.shape[1])
+    return state, cfg
+
+
+def pyannet_name_map(cfg):
+    """pyannote.audio PyanNet state-dict names (segmentation-community-1.onnx)
+    -> PyanNet state-dict keys: the same names, the module mirrors the
+    upstream tree."""
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet
+
+    return {k: (k, None) for k in PyanNet(cfg).state_dict()}
+
+
+def load_pyannet(path, cfg=None):
+    """Load segmentation-community-1.onnx into (state, cfg) for
+    models/pyannet.PyanNet. The config is derived from the file's tensor
+    shapes unless given. Each LSTM direction's two biases are summed into
+    bias_ih (bias_hh zero), as the JAX package keeps one gate bias."""
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+
+    init = _strip_prefixes(read_onnx(path)["initializers"])
+    if cfg is None:
+        low = init.get("sincnet.conv1d.0.low_hz_")
+        if low is None:
+            raise ImportReport(
+                "[pyannet] sincnet.conv1d.0.low_hz_ not found; first names: "
+                f"{sorted(init)[:8]}")
+        n_lstm = 0
+        while f"lstm.weight_ih_l{n_lstm}" in init:
+            n_lstm += 1
+        cfg = PyanNetConfig(
+            sinc_filters=low.shape[0],
+            conv_channels=init["sincnet.conv1d.1.weight"].shape[0],
+            lstm_hidden=init["lstm.weight_hh_l0"].shape[1],
+            lstm_layers=n_lstm,
+            linear_dim=init["linear.0.weight"].shape[0],
+            num_classes=init["classifier.weight"].shape[0])
+    state = _template(PyanNet(cfg))
+    map_initializers(init, pyannet_name_map(cfg), state, label="pyannet",
+                     fallback_match=True)
+    for k in [k for k in state if k.startswith("lstm.bias_ih_")]:
+        hh = k.replace("bias_ih_", "bias_hh_")
+        state[k] = state[k] + state[hh]
+        state[hh] = np.zeros_like(state[hh])
+    return state, cfg
+
+
+def resnet_speaker_name_map(cfg):
+    """wespeaker ResNet34 names under the 'resnet.' prefix
+    (embedding_encoder.onnx) -> ResNetSpeaker state-dict keys: the same
+    names. Each BatchNorm is a group with identity defaults, used when the
+    exporter folded the whole group into the convolution (running_var
+    1 - 1e-5, so that var + eps is 1)."""
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import ResNetSpeaker
+
+    defaults = {"weight": 1.0, "bias": 0.0, "running_mean": 0.0,
+                "running_var": 1.0 - 1e-5}
+    m = {}
+    for k in ResNetSpeaker(cfg).state_dict():
+        if k.startswith("resnet.seg_1.") or k.endswith(".num_batches_tracked"):
+            continue  # the projection comes from its own .npy files
+        prefix, leaf = k.rsplit(".", 1)
+        if ".bn" in k or ".shortcut.1." in k:
+            m[k] = (k, None, prefix, defaults[leaf])
+        else:
+            m[k] = (k, None)
+    return m
+
+
+def load_resnet_speaker(encoder_onnx_path, weight_npy_path, bias_npy_path,
+                        cfg=None):
+    """Load embedding_encoder.onnx + resnet_seg_1_{weight,bias}.npy into
+    (state, cfg) for models/resnet_speaker.ResNetSpeaker. The config (base
+    channels, blocks per stage, embedding width) is derived from the files
+    unless given."""
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
+        ResNetSpeaker,
+        ResNetSpeakerConfig,
+    )
+
+    init = _strip_prefixes(read_onnx(encoder_onnx_path)["initializers"])
+    weight = np.load(weight_npy_path)
+    bias = np.load(bias_npy_path)
+    if cfg is None:
+        c1 = init.get("resnet.conv1.weight")
+        if c1 is None:
+            raise ImportReport(
+                "[resnet] resnet.conv1.weight not found; first names: "
+                f"{sorted(init)[:8]}")
+        blocks = []
+        stage = 1
+        while f"resnet.layer{stage}.0.conv1.weight" in init:
+            j = 0
+            while f"resnet.layer{stage}.{j}.conv1.weight" in init:
+                j += 1
+            blocks.append(j)
+            stage += 1
+        cfg = ResNetSpeakerConfig(base_channels=c1.shape[0], blocks=tuple(blocks),
+                                  embed_dim=weight.shape[0])
+    state = _template(ResNetSpeaker(cfg))
+    map_initializers(init, resnet_speaker_name_map(cfg), state, label="resnet",
+                     fallback_match=True)
+    for key, arr in (("resnet.seg_1.weight", weight), ("resnet.seg_1.bias", bias)):
+        if arr.shape != state[key].shape:
+            raise ImportReport(f"[resnet] {key}: shape {arr.shape}, expected "
+                               f"{state[key].shape}")
+        state[key] = arr.astype(np.float32)
     return state, cfg

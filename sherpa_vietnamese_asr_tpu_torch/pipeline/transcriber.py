@@ -1,16 +1,23 @@
 # TranscriberPipeline — the batch transcription entry point.
 #
-# Port of sherpa_vietnamese_asr_tpu/pipeline/transcriber.py for the ASR-only
-# configuration: same constructor shape (file_path, model, config,
-# progress_callback, cancel_check), same PHASE progress protocol, .asr_phase
-# file, resume checkpoint and result contract. Stage order:
+# Port of sherpa_vietnamese_asr_tpu/pipeline/transcriber.py: same
+# constructor shape (file_path, model, config, progress_callback,
+# cancel_check, diarizer), same PHASE progress protocol, .asr_phase file,
+# resume checkpoint and result contract. Stage order:
 #   load audio -> [resume from a checkpoint] -> VAD (Silero on the model's
 #   device, a caller's vad_prob_fn, or bypass_vad) -> [preprocess] ->
-#   silence-aware 30 s/3 s chunk plan -> batched decode [per-chunk WPE]
-#   [-> ROVER over a model pair] -> overlap merge -> suspect detect ->
-#   filler removal -> pause segmentation -> result.
+#   [diarization facade started in the background] -> silence-aware
+#   30 s/3 s chunk plan -> batched decode [per-chunk WPE] [-> ROVER over a
+#   model pair] -> overlap merge -> suspect detect -> filler removal ->
+#   [speaker diarization] -> pause segmentation [-> words split by speaker]
+#   -> result.
 # Stages not ported yet raise NotImplementedError instead of being skipped:
-# diarization, punctuation, DNSMOS quality and overlap separation.
+# punctuation, DNSMOS quality and overlap separation.
+#
+# One difference in behaviour: the JAX pipeline catches a diarization
+# failure, logs it and returns a result without speakers. Here it
+# propagates out of run(), so a diarization that fails on the card can
+# never end in a run that looks successful.
 
 from __future__ import annotations
 
@@ -22,7 +29,12 @@ import numpy as np
 
 from sherpa_vietnamese_asr_tpu_torch.models.registry import AsrModel
 from sherpa_vietnamese_asr_tpu_torch.pipeline import chunking, vad as vad_mod
+from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_post as dp
 from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder
+from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization import (
+    SPEAKER_EMBEDDING_MODELS,
+    SpeakerDiarizer,
+)
 from sherpa_vietnamese_asr_tpu_torch.pipeline.merge import (
     merge_chunks_with_overlap,
     split_long_segments,
@@ -45,8 +57,7 @@ from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import is_int16_exact, load_
 SAMPLE_RATE = 16000
 
 # config flags of the JAX pipeline whose stages are not ported yet
-_UNPORTED_FLAGS = ("speaker_diarization", "quality_analysis",
-                   "overlap_separation")
+_UNPORTED_FLAGS = ("quality_analysis", "overlap_separation")
 
 
 def segment_words_by_pause(all_words, max_words=15, pause_sec=0.8):
@@ -96,17 +107,22 @@ class TranscriberPipeline:
         config: dict. Supported keys: bypass_vad, skip_preprocessing,
             preprocess_rms_normalize, preprocess_wpe, enable_resume,
             hotword_phrases (ROVER's hotword bonus), max_batch (default 8),
-            decode_transfer_dtype ("float32" | "int16").
+            decode_transfer_dtype ("float32" | "int16"),
+            speaker_diarization (with speaker_model, num_speakers,
+            diarization_threshold, diarize_overlap_decode).
         progress_callback: callable(str) receiving "PHASE:<Name>|<msg>|<pct>".
         cancel_check: callable() -> bool.
         vad_prob_fn: callable(audio) -> per-window speech probabilities;
             default: Silero VAD on the model's device (the checkpoint from
             models/assets, else loudly flagged random weights).
+        diarizer: a PureDiarizer (its raw segments are post-processed here)
+            or a SpeakerDiarizer facade; with config speaker_diarization and
+            no diarizer, a facade on the model's device.
     """
 
     def __init__(self, file_path, model: AsrModel, config=None,
                  progress_callback=None, cancel_check=None,
-                 vad_prob_fn=None):
+                 vad_prob_fn=None, diarizer=None):
         self.file_path = file_path
         if isinstance(model, (tuple, list)):
             self.model, self.model_b = model[0], model[1]
@@ -131,6 +147,18 @@ class TranscriberPipeline:
         self.progress_callback = progress_callback
         self.cancel_check = cancel_check
         self.vad_prob_fn = vad_prob_fn
+        self.diarizer = diarizer
+        # Callers that pass only the config dict get the facade.
+        if (self.diarizer is None
+                and self.config.get("speaker_diarization", False)):
+            model_key = self.config.get("speaker_model", "pure_ort")
+            model_id = model_key if model_key in SPEAKER_EMBEDDING_MODELS \
+                else "community1_pure_ort"
+            self.diarizer = SpeakerDiarizer(
+                embedding_model_id=model_id,
+                num_clusters=int(self.config.get("num_speakers", 0)) or -1,
+                threshold=float(self.config.get("diarization_threshold", 0.6)),
+                backend_kwargs={"device": self.model.device})
         self._phase_file = str(file_path) + ".asr_phase"
 
     def _decoder(self, transfer_dtype=None, chunk_transform=None):
@@ -218,8 +246,8 @@ class TranscriberPipeline:
         ckpt = self._load_checkpoint()
         if ckpt is not None:
             self._emit("PHASE:Transcription|Resuming from checkpoint|100")
-            return self._finish(t0, timing, total_samples, ckpt["all_words"],
-                                ckpt["full_text"])
+            return self._finish(t0, timing, audio, total_samples,
+                                ckpt["all_words"], ckpt["full_text"])
 
         # ---- VAD -> concat -> chunk plan ----
         t_vad = time.time()
@@ -260,6 +288,17 @@ class TranscriberPipeline:
         timing["vad"] = time.time() - t_vad
         if self._cancelled():
             return None
+
+        # ---- Diarization overlapped with decode ----
+        # Diarization needs only the audio: the facade starts its backend
+        # now, so its superblocks interleave with decode batches on the card
+        # and its host-side clustering rides the decode wait. _finish()
+        # consumes the result.
+        if (self._diarize() and self.config.get("diarize_overlap_decode", True)
+                and isinstance(self.diarizer, SpeakerDiarizer)):
+            self._emit("PHASE:Transcription|Transcribing "
+                       "(diarization in background)|0")
+            self.diarizer.start_background(audio)
 
         silent = chunking.find_silent_regions(concat_audio)
         plan = chunking.plan_chunks(len(concat_audio), silent)
@@ -332,16 +371,53 @@ class TranscriberPipeline:
 
         self._save_checkpoint(all_words, full_text, len(concat_audio),
                               vad_probs)
-        return self._finish(t0, timing, total_samples, all_words, full_text)
+        return self._finish(t0, timing, audio, total_samples, all_words,
+                            full_text)
 
-    def _finish(self, t0, timing, total_samples, all_words, full_text):
-        """Pause segmentation and result assembly. Entered either from a
-        live decode or from a resume checkpoint."""
+    def _diarize(self):
+        return (self.config.get("speaker_diarization", False)
+                and self.diarizer is not None)
+
+    def _finish(self, t0, timing, audio, total_samples, all_words, full_text):
+        """Speaker diarization, pause segmentation and result assembly.
+        Entered either from a live decode or from a resume checkpoint."""
+        raw_speaker_segments = None
+        speaker_segments_raw = []
+        if self._diarize() and all_words:
+            t_diar = time.time()
+            self._emit("PHASE:Diarization|Detecting speakers|0")
+
+            def diar_progress(pct, total=100):
+                self._emit(f"PHASE:Diarization|Detecting speakers|{pct}")
+
+            # The facade returns post-processed [Segment]; a raw backend
+            # returns [{"start","end","speaker"}] that still needs the
+            # post-processing (gap merge, NaturalTurn, fragment resolve).
+            if isinstance(self.diarizer, SpeakerDiarizer):
+                raw_speaker_segments = self.diarizer.process(
+                    audio, progress_callback=diar_progress, asr_words=all_words)
+            else:
+                raw = self.diarizer.process(audio, progress_callback=diar_progress)
+                raw_speaker_segments = dp.post_process_diarization_segments(
+                    [dp.Segment(s["start"], s["end"], s["speaker"]) for s in raw],
+                    asr_words=all_words)
+            speaker_segments_raw = [{
+                "speaker": dp.speaker_name(s.speaker),
+                "speaker_id": s.speaker,
+                "start": s.start, "end": s.end,
+                "duration": s.end - s.start,
+            } for s in raw_speaker_segments]
+            self._emit("PHASE:Diarization|Done|100")
+            timing["diarization"] = time.time() - t_diar
         if self._cancelled():
             return None
         t_align = time.time()
         self._emit("PHASE:Align|Aligning timestamps|0")
         final_segments = segment_words_by_pause(all_words)
+        if raw_speaker_segments is not None:
+            final_segments = dp.process_with_transcription(
+                final_segments, raw_speaker_segments)
+            final_segments = dp.smooth_speaker_boundary_fragments(final_segments)
         final_segments = fix_overlapping_segments(final_segments)
         final_segments = split_long_segments(final_segments, max_duration=12.0,
                                              preserve_raw_words=True)
@@ -365,7 +441,7 @@ class TranscriberPipeline:
                 "sentence_segmentation": 0.0,
                 "punctuation": 0.0,
                 "alignment": timing["alignment"],
-                "diarization": 0.0,
+                "diarization": timing.get("diarization", 0.0),
                 "quality": 0.0,
                 "load_audio": timing.get("load_audio", 0.0),
                 "vad": timing.get("vad", 0.0),
@@ -373,8 +449,8 @@ class TranscriberPipeline:
                 "quality_overlapped": 0.0,
             },
             "paragraphs": [],
-            "has_speaker_diarization": False,
-            "speaker_segments_raw": [],
+            "has_speaker_diarization": bool(speaker_segments_raw),
+            "speaker_segments_raw": speaker_segments_raw,
             "duration_sec": total_samples / SAMPLE_RATE,
             "speaker_names": {},
             "asr_confidence": (float(np.mean(word_probs))

@@ -3,16 +3,18 @@
 Run from the repository root:
 
     python3 -m sherpa_vietnamese_asr_tpu_torch.tools.profile_slice \
-        [--dtype float32|bfloat16] [--vad] [--seconds 95] [--long-seconds 600] \
-        [--trace trace.json]
+        [--dtype float32|bfloat16] [--vad] [--diarize] [--seconds 95] \
+        [--long-seconds 600] [--trace trace.json]
 
 It builds the random-weight Zipformer-30M model (vocab 2000, beam 8) in the
 given compute dtype; bfloat16 also carries the synthetic hotword table of
 chip_smoke.py (the bf16 slice). It runs
 TranscriberPipeline(path, model, {"bypass_vad": True}) -- with --vad the
 default path, TranscriberPipeline(path, model, {}), whose Silero VAD runs on
-the card with random weights -- on a synthetic AM-tone WAV twice to warm
-up, then once under torch.profiler, and prints:
+the card with random weights; with --diarize also config
+speaker_diarization and a full-width PureDiarizer (random weights) on the
+card -- on a synthetic AM-tone WAV twice to warm up, then once under
+torch.profiler, and prints:
   - the request's wall time and the pipeline's own `timing` split;
   - device busy time (the union of the card's kernel and copy intervals),
     its share of the wall time and the idle share (1 - busy / wall);
@@ -25,6 +27,10 @@ up, then once under torch.profiler, and prints:
     device busy time and idle share from one more run under the profiler;
   - with --vad, the VAD's own device time (silero_vad_probs_streamed alone
     on audio of each request's length, under the profiler);
+  - with --diarize, the requests' `diarization` timing key and one full
+    superblock's device time by part (PyanNet, kernel 1, ResNet34, pooling +
+    projection, the span's upload and the results' download, each alone
+    between CUDA events, and the whole superblock);
   - the card's name and power limit, as nvidia-smi prints them.
 The last line is a JSON object with these numbers.
 """
@@ -34,6 +40,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
 import subprocess
 import tempfile
@@ -179,22 +186,48 @@ def _profile_window(fn, reps):
 
 def _profiled_busy(fn):
     """(device busy ms, wall ms) of one call of fn() under the profiler,
-    after a warm-up step."""
+    after a warm-up step. fn must run on the card: a window that saw no
+    device event lost its events and is taken again after a pause, at most
+    PROFILE_WINDOWS windows, and then this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=_warm_window()) as prof:
-        torch.ones(1, device="cuda").add_(1)  # the warm-up step
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=_warm_window()) as prof:
+            torch.ones(1, device="cuda").add_(1)  # the warm-up step
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+        events = _device_events(prof)
+        if events:
+            return _busy_ms([(e.time_range.start, e.time_range.end) for e in events]), wall * 1e3
+        print("profile window lost events: 0 device events; window discarded", flush=True)
+        time.sleep(LOST_WINDOW_PAUSE_S)
+    raise RuntimeError(f"profiler lost events in each of {PROFILE_WINDOWS} windows")
+
+
+def event_ms(fn, reps=5):
+    """Milliseconds of one call of fn() on the card: CUDA events around
+    `reps` back-to-back calls after a warm-up call, over reps. When the
+    host enqueues faster than the card runs, this is the call's device
+    time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
         fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        prof.step()
-    events = _device_events(prof)
-    return _busy_ms([(e.time_range.start, e.time_range.end) for e in events]), wall * 1e3
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def vad_device_ms(audio, dev):
@@ -208,11 +241,64 @@ def vad_device_ms(audio, dev):
     return busy, per_name
 
 
+def diarization_parts(diar, audio):
+    """Device ms of one full superblock of `diar` (a PureDiarizer on the
+    card) on the start of `audio`, by part, each part alone over the same
+    inputs (event_ms): {"pyannet", "kernel 1", "resnet", "pooling +
+    projection", "upload", "download", "superblock"}, plus "frames", the
+    kernel's frame count."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+    from sherpa_vietnamese_asr_tpu_torch.ops.stats_pool import masked_stats_pool
+    from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_pure as dp
+
+    w = diar.superblock_windows
+    sb_len = dp.superblock_samples(w)
+    span = np.zeros(sb_len, np.int16)
+    take = min(sb_len, len(audio))
+    span[:take] = np.clip(np.rint(audio[:take] * 32768.0), -32768, 32767)
+    dev = diar.device
+    host = torch.from_numpy(span)
+    if dev.type == "cuda":
+        host = host.pin_memory()
+    block = host.to(dev)
+    msf = math.ceil(dp.NUM_SEG_FRAMES * 1680 / dp.CHUNK_SAMPLES)
+    with torch.no_grad():
+        x = block.to(torch.float32) / 32768.0
+        windows = x.unfold(0, dp.CHUNK_SAMPLES, dp.STEP_SAMPLES)[:w]
+        frames = fbank._frame_signal(x, dp._SB_FBANK).reshape(-1, dp._SB_FBANK.n_fft)
+        frames = frames.contiguous()
+        fb = dp._chunk_fbank(x, w)
+        am = diar.seg_model(windows).argmax(dim=-1)
+        weights, _ = dp._pool_weights(dp._powerset(dev)[am],
+                                      diar.emb_cfg.out_time(dp.FRAMES_PER_CHUNK), msf)
+        feat = diar.emb_model.resnet_frame_features(fb)
+        outs = dp._superblock_body(diar.seg_model, diar.emb_model, block, w, msf, True)
+        parts = {
+            "pyannet": lambda: diar.seg_model(windows),
+            "kernel 1": lambda: fbank.logmel(frames, dp._SB_FBANK),
+            "resnet": lambda: diar.emb_model.resnet_frame_features(fb),
+            "pooling + projection": lambda: diar.emb_model.project_embedding(
+                masked_stats_pool(feat, weights)),
+            "upload": lambda: host.to(dev, non_blocking=True),
+            "download": lambda: [t.to("cpu", non_blocking=True) for t in outs],
+            "superblock": lambda: dp._superblock_body(diar.seg_model, diar.emb_model,
+                                                      block, w, msf, True),
+        }
+        out = {name: event_ms(fn, reps=50 if name in ("kernel 1", "upload", "download") else 5)
+               for name, fn in parts.items()}
+    out["frames"] = frames.shape[0]
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--vad", action="store_true",
                     help="the default path: Silero VAD on (random weights)")
+    ap.add_argument("--diarize", action="store_true",
+                    help="speaker diarization on (full-width PureDiarizer, random weights)")
     ap.add_argument("--seconds", type=float, default=95.0)
     ap.add_argument("--long-seconds", type=float, default=600.0)
     ap.add_argument("--top", type=int, default=12)
@@ -235,6 +321,12 @@ def main(argv=None):
     if args.dtype == "bfloat16":
         model.hotword_tables = synthetic_hotword_tables(model.rnnt_cfg.vocab_size, dev)
     config = {} if args.vad else {"bypass_vad": True}
+    diarizer = None
+    if args.diarize:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import PureDiarizer
+
+        config["speaker_diarization"] = True
+        diarizer = PureDiarizer(device=dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "request.wav")
@@ -243,7 +335,7 @@ def main(argv=None):
         write_wav(long_path, am_tone(args.long_seconds, 4), SR)
 
         for _ in range(2):
-            TranscriberPipeline(path, model, config=config).run()
+            TranscriberPipeline(path, model, config=config, diarizer=diarizer).run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=_warm_window()) as prof:
@@ -251,23 +343,27 @@ def main(argv=None):
             torch.cuda.synchronize()
             prof.step()
             t0 = time.perf_counter()
-            res = TranscriberPipeline(path, model, config=config).run()
+            res = TranscriberPipeline(path, model, config=config, diarizer=diarizer).run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.step()
 
-        TranscriberPipeline(long_path, model, config=config).run()
+        TranscriberPipeline(long_path, model, config=config, diarizer=diarizer).run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        long_res = TranscriberPipeline(long_path, model, config=config).run()
+        long_res = TranscriberPipeline(long_path, model, config=config,
+                                       diarizer=diarizer).run()
         torch.cuda.synchronize()
         long_wall = time.perf_counter() - t0
         long_busy, long_profiled_ms = _profiled_busy(
-            lambda: TranscriberPipeline(long_path, model, config=config).run())
+            lambda: TranscriberPipeline(long_path, model, config=config,
+                                        diarizer=diarizer).run())
         vad_ms = None
         if args.vad:
             vad_ms = {seconds: vad_device_ms(am_tone(seconds, seed), dev)
                       for seconds, seed in ((args.seconds, 3), (args.long_seconds, 4))}
+        diar_parts = diarization_parts(diarizer, am_tone(args.long_seconds, 4)) \
+            if args.diarize else None
 
     if args.trace:
         prof.export_chrome_trace(args.trace)
@@ -311,6 +407,11 @@ def main(argv=None):
             print(f"VAD alone, {seconds} s: device {busy_ms:.3f} ms: " + ", ".join(
                 f"{name[:60]} {ms:.3f}" for name, ms in sorted(
                     per_name.items(), key=lambda kv: -kv[1])[:4]))
+    if diar_parts:
+        print("diarization, one superblock of "
+              f"{diarizer.superblock_windows} windows, device ms by part: " + ", ".join(
+                  f"{name} {ms:.3f}" for name, ms in diar_parts.items() if name != "frames")
+              + f" (kernel 1 at F {diar_parts['frames']})")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -324,7 +425,8 @@ def main(argv=None):
         "long_timing": long_res["timing"], "long_profiled_wall_ms": long_profiled_ms,
         "long_device_busy_ms": long_busy,
         "long_idle_share": 1 - long_busy / long_profiled_ms, "vad": args.vad,
-        "vad_device_ms": vad_ms and {s: ms for s, (ms, _) in vad_ms.items()}}))
+        "vad_device_ms": vad_ms and {s: ms for s, (ms, _) in vad_ms.items()},
+        "diarize": args.diarize, "diarization_parts_ms": diar_parts}))
 
 
 if __name__ == "__main__":

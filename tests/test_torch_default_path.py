@@ -238,10 +238,11 @@ def test_cli_refuses_unported_stages_and_needs_a_card(tmp_path):
     from sherpa_vietnamese_asr_tpu_torch.cli import main
 
     wav = _wav(tmp_path, "t.wav")
-    for flag in ("--diarize", "--punctuate", "--quality"):
+    for flag in ("--punctuate", "--quality"):
         with pytest.raises(NotImplementedError):
             main(["transcribe", wav, "--device", "cpu", "--allow-random", flag])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main(["transcribe", wav, "--allow-random"])
+        for extra in ([], ["--diarize"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(["transcribe", wav, "--allow-random"] + extra)
     assert jax.default_backend() == "cpu"
