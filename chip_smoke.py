@@ -30,7 +30,11 @@ Phases (any failure raises and the script exits non-zero):
   4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
      three WAV files with a random-weight Zipformer-30M model (vocab 2000,
      beam 8, float32), checking the result contract and that every kernel of
-     the path ran;
+     the path ran; then one request with {"max_batch": 0}: the size resolved
+     from the card's free memory (64 on an idle 80 GB card), every kernel
+     launched at it, the words equal to max_batch 8's (the joiner sharpened
+     x 8 against near-ties; a difference counted and held to the host CPU's
+     spread);
   5. bfloat16 slice: the same entry point with the bfloat16 Zipformer-30M
      (same weights) carrying a hotword table, on two files; the whole-layer
      kernel and the hotword beam must run, and the bf16 encoder output must
@@ -64,7 +68,20 @@ Phases (any failure raises and the script exits non-zero):
      from the directory), and the facade's background pass giving the
      synchronous path's speakers; a warm 600 s PureDiarizer.process (wall,
      device busy, one superblock's device time by part) with kernel 1
-     launched once a superblock.
+     launched once a superblock;
+  9. punctuation and quality: a full-width ViBERT (12 x 768, vocab 62,000,
+     random from a torch.Generator seeded 0) on the card against its CPU
+     twin on one 32 x T 128 minibatch (logits within 1e-4 of the twin's
+     max, label argmax agreeing on >= 99.9% of word positions), TF32
+     products failing that gate, the int8 tier's agreement; GecBert on
+     2,000 words with pause hints, card against CPU (equal text where the
+     argmax agrees), its warm wall, device time, minibatches, iterations
+     and host time; DNSMOS on three 9.01 s windows within 1e-4, a periodic
+     Hann window failing it; the CLI `transcribe <100 s wav> --model <dir>
+     --punctuate --quality --diarize` on a directory written by the port's
+     exporters, the same request through TranscriberPipeline with DNSMOS
+     overlapped and synchronous (equal raw scores); a warm 600 s request
+     with both stages.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks); the last line is
@@ -128,6 +145,7 @@ FBANK_GATE_MEAN, FBANK_GATE_MAX = 1e-5, 2e-2
 # ratio 0.93 to 0.94.
 FBANK_ORACLE_MARGIN = 1.1
 COSINE_GATE = 0.99  # bf16 vs float32 encoder output, per chunk
+AUTO_SHARPEN = 8.0  # joiner output weights of the max_batch 0 request (tests/test_torch_slice.py)
 BEAM_TIE_V = 1999  # vocab slices of 250 columns, the last one 249
 # (token, bias) pairs of the boundary-tie joiner: zero weight rows, so each
 # pair's logits tie exactly in every summation order; 249 | 250 is the first
@@ -1190,7 +1208,88 @@ def phase_slice(dev, model, tmp):
     log(f"slice float32 launches: {launches}")
     assert all(n > 0 for n in launches.values()), "a kernel never ran in the slice"
     warm_request(model, paths)
+    auto_batch_request(model, paths)
     return launches
+
+
+def host_words(model, path):
+    """The word texts of the same request decoded by a copy of `model` on
+    the host CPU (every kernel's twin), at max_batch 8."""
+    import copy
+
+    from sherpa_vietnamese_asr_tpu_torch.tools.batch_drift import request_words
+
+    return request_words(copy.deepcopy(model).to("cpu"), path, SLICE_BATCH)
+
+
+def sharp_copy(model):
+    """`model` with its joiner's output weights x AUTO_SHARPEN: the same
+    architecture and kernels with fewer near-tied beam steps."""
+    import copy
+
+    import torch
+
+    sharp = copy.deepcopy(model)
+    with torch.no_grad():
+        sharp.joiner.output.weight.mul_(AUTO_SHARPEN)
+    return sharp
+
+
+def auto_batch_request(model, paths):
+    """max_batch 0 ("auto") on the card: the size resolved from the free
+    memory, every kernel of the path launched at that batch, and the real
+    rows' words equal to the max_batch 8 request's. At B 64 the encoder's
+    float32 output differs from B 8's in its last bits, with kernel 2 or
+    its twin (tools/batch_drift.py), which flips near-tied beam steps of
+    random weights, so the request runs `model` with a sharper joiner
+    (sharp_copy), and a word may still differ only where the near-tie
+    policy of phase 3 (check_beam_e512) lets it: in no more words than the
+    same request decoded on the host CPU differs from the card's at
+    max_batch 8 (tools/batch_drift.py measures both with the plain random
+    joiner)."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.calibration import hbm_budget_mb
+    from sherpa_vietnamese_asr_tpu_torch.tools.batch_drift import encoder_rows_err, word_differ
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import load_audio
+
+    model = sharp_copy(model)
+    path = paths["am_tone_95s"]
+    ref = TranscriberPipeline(path, model, config={"bypass_vad": True, "max_batch": 8}).run()
+    free_mb = hbm_budget_mb(model.device)
+    pipe = TranscriberPipeline(path, model, config={"bypass_vad": True, "max_batch": 0})
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got, want = ([w[0] for w in _words(r["segments"])] for r in (res, ref))
+    differ = word_differ(got, want)
+    n, f_err, e_err = encoder_rows_err(model, load_audio(path, SR), pipe.max_batch)
+    log(f"slice float32 max_batch 0 (joiner x {AUTO_SHARPEN}): resolved to {pipe.max_batch} "
+        f"with {free_mb} MB free on the card; am_tone_95s wall {wall:.3f} s (first run at this batch), launches "
+        f"{launches}, words {len(got)}, {differ} differ from max_batch 8's {len(want)}; "
+        f"the {n} real rows at B {pipe.max_batch} vs B {SLICE_BATCH}: fbank max |d| "
+        f"{f_err:.3e}, encoder output max |d| {e_err:.3e} of the max; peak memory "
+        f"{peak:.2f} GiB ({card()})")
+    assert all(n > 0 for n in launches.values()), "a kernel never ran at the auto batch"
+    if differ:
+        spread = word_differ(host_words(model, path), want)
+        log(f"slice float32 max_batch 0: the host CPU's words differ from max_batch 8's "
+            f"in {spread}")
+        assert differ <= spread, "max_batch 0: words beyond the near-tie spread"
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    log(f"slice float32 max_batch {pipe.max_batch}: am_tone_95s warm wall "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 def encoder_cosine(model32, model16, files):
@@ -1859,6 +1958,394 @@ def phase_diarization(dev, model, tmp):
     return diarization_timing(card_diar)
 
 
+# ---------------------------------------------------------------- phase 9
+
+VIBERT_MB, VIBERT_T, VIBERT_W = 32, 128, 64  # one GEC minibatch at the T 128 bucket
+VIBERT_LOGIT_GATE = 1e-4  # max |card - CPU| of the logits over the CPU's max |logit|
+VIBERT_ARGMAX_AGREE = 0.999  # share of word positions whose label argmax agrees
+DNSMOS_GATE = 1e-4  # max |card - CPU| of the raw scores
+# Added to the random DNSMOS head's biases: raw scores near 3, where the
+# polynomial maps them inside (1, 5) instead of clipping them all to 1.
+DNSMOS_HEAD_BIAS = 3.0
+GEC_WORDS = 2000
+PUNCT_LONG_SECONDS = 600
+
+
+def syllables(n=400, seed=0):
+    """n distinct lower-case syllables: the GEC text's words, each one piece
+    of the WordPiece vocab (so the CPU twin runs the T 64 bucket)."""
+    rng = np.random.default_rng(seed)
+    onsets = ["b", "c", "ch", "d", "g", "h", "k", "kh", "l", "m", "n", "ng", "nh", "ph",
+              "qu", "r", "s", "t", "th", "tr", "v", "x"]
+    rhymes = ["a", "ai", "an", "ang", "anh", "ao", "e", "em", "en", "i", "inh", "o", "oi",
+              "ong", "u", "ua", "uoc", "ung", "uong", "y"]
+    out = sorted({o + r for o in onsets for r in rhymes})
+    return sorted(rng.choice(out, size=n, replace=False).tolist())
+
+
+def gec_vocab():
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.punctuation import SYNTHETIC_VOCAB
+
+    return list(SYNTHETIC_VOCAB) + syllables()
+
+
+def vibert_pair(dev):
+    """A full-width ViBERT (12 layers, 768 wide, vocab 62,000) on the card,
+    its weights drawn from a torch.Generator seeded 0, and its CPU twin."""
+    from sherpa_vietnamese_asr_tpu_torch.models.vibert import ViBert, ViBertConfig, random_vibert
+
+    card_model = random_vibert(ViBertConfig(), seed=0, device=dev)
+    twin = ViBert(card_model.cfg)
+    twin.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    return card_model, twin.to("cpu")
+
+
+def vibert_inputs():
+    """One minibatch: 32 rows of T 128 (rows 1 and 3 ragged, the last a
+    padding row), W 64 offsets of 57 words ($START and 56) a row."""
+    rng = np.random.default_rng(9)
+    ids = rng.integers(5, 62000, (VIBERT_MB, VIBERT_T)).astype(np.int32)
+    att = np.ones_like(ids)
+    att[1, 90:] = 0
+    att[3, 70:] = 0
+    att[-1] = 0
+    ids[att == 0] = 0
+    offs = np.zeros((VIBERT_MB, VIBERT_W), np.int32)
+    n_words = np.zeros(VIBERT_MB, np.int64)
+    for i in range(VIBERT_MB - 1):
+        n = int(att[i].sum())
+        pos = np.sort(rng.choice(np.arange(1, n), size=56, replace=False))
+        offs[i, 1:57] = pos
+        n_words[i] = 57
+    return [ids, att, np.zeros_like(ids), offs], n_words
+
+
+def vibert_forward(model, inputs):
+    import torch
+
+    with torch.no_grad():
+        out = model(*(torch.from_numpy(a).to(model.device) for a in inputs))
+    return [o.float().cpu().numpy() for o in out]
+
+
+def vibert_gate(got, ref, n_words):
+    """(max |d logits| / max |CPU logit|, argmax agreement over word positions)."""
+    valid = np.arange(VIBERT_W)[None, :] < n_words[:, None]
+    err = max(float(np.abs(g - r).max() / np.abs(r).max()) for g, r in zip(got, ref))
+    agree = float((got[0].argmax(-1) == ref[0].argmax(-1))[valid].mean())
+    return err, agree
+
+
+def check_vibert(card_model, twin):
+    """(1) The full-width ViBERT on the card against its CPU twin on one
+    minibatch; TF32 on, a planted fault, must fail the logits gate; the int8
+    tier's argmax against float32's. Returns the minibatch's device ms."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models import vibert as vb
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import event_ms
+
+    inputs, n_words = vibert_inputs()
+    t0 = time.perf_counter()
+    ref = vibert_forward(twin, inputs)
+    cpu_s = time.perf_counter() - t0
+    got = vibert_forward(card_model, inputs)
+    err, agree = vibert_gate(got, ref, n_words)
+    log(f"vibert: 12 x 768, vocab 62000, minibatch {VIBERT_MB} x T {VIBERT_T} W {VIBERT_W}: "
+        f"card vs CPU max |d logits| {err:.3e} of the CPU's max (gate {VIBERT_LOGIT_GATE}), "
+        f"label argmax agreement {agree:.6f} over {int(n_words.sum())} word positions "
+        f"(gate {VIBERT_ARGMAX_AGREE}); CPU twin {cpu_s:.2f} s")
+    assert err <= VIBERT_LOGIT_GATE and agree >= VIBERT_ARGMAX_AGREE, \
+        "vibert: card and CPU disagree"
+
+    check = vb._check_full_fp32
+    vb._check_full_fp32 = lambda: None  # the planted fault: TF32 products
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fault = vibert_forward(card_model, inputs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        vb._check_full_fp32 = check
+    f_err, f_agree = vibert_gate(fault, ref, n_words)
+    log(f"vibert: planted fault, TF32 products on the card: max |d logits| {f_err:.3e}, "
+        f"argmax agreement {f_agree:.6f}")
+    assert f_err > VIBERT_LOGIT_GATE, "vibert: the TF32 fault passes the logits gate"
+
+    qmodel = vb.quantize_vibert_int8(card_model)
+    q = vibert_forward(qmodel, inputs)
+    q_err, q_agree = vibert_gate(q, got, n_words)
+    log(f"vibert int8 tier vs float32 on the card: max |d logits| {q_err:.3e} of float32's "
+        f"max, label argmax agreement {q_agree:.6f}")
+    dev_inputs = [torch.from_numpy(a).to(card_model.device) for a in inputs]
+    times = {}
+    for name, model in (("float32", card_model), ("int8", qmodel)):
+        with torch.no_grad():
+            times[name] = event_ms(lambda m=model: m(*dev_inputs))
+    del qmodel
+    log(f"vibert minibatch {VIBERT_MB} x T {VIBERT_T} device time (CUDA events): float32 "
+        f"{times['float32']:.3f} ms, int8 tier {times['int8']:.3f} ms ({card()})")
+    return times
+
+
+def gec_text():
+    """~2,000 words from the syllables, with pause hints: mostly 0.05-0.3 s,
+    every 9th to 17th word a pause of 1-2 s."""
+    rng = np.random.default_rng(4)
+    words = rng.choice(syllables(), size=GEC_WORDS).tolist()
+    hints = rng.uniform(0.05, 0.3, size=GEC_WORDS)
+    hints[np.cumsum(rng.integers(9, 18, size=GEC_WORDS // 9)) % GEC_WORDS] = 1.5
+    return " ".join(words), hints.tolist()
+
+
+def recorded_gec(gec):
+    """Wrap gec._run_decode: each call's (label index rows, seconds) kept."""
+    calls = []
+    run = gec._run_decode
+
+    def recording(inputs, hints_rows=None):
+        t0 = time.perf_counter()
+        out = run(inputs, hints_rows=hints_rows)
+        calls.append((out[1], time.perf_counter() - t0, len(inputs["input_ids"]),
+                      inputs["input_ids"].shape[1]))
+        return out
+
+    gec._run_decode = recording
+    return calls
+
+
+def check_gec(card_model, twin):
+    """(2) GecBert at full width on ~2,000 words with pause hints, card
+    against CPU: the restored text equal wherever the label argmax agrees
+    everywhere; the warm wall, device time, minibatches, iterations and host
+    time."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.gec import GecBert
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import _profiled_busy
+    from sherpa_vietnamese_asr_tpu_torch.utils.wordpiece import WordPieceTokenizer
+
+    text, hints = gec_text()
+    gecs = [GecBert(m, WordPieceTokenizer(gec_vocab()), confidence=0.3)
+            for m in (card_model, twin)]
+    records = [recorded_gec(g) for g in gecs]
+    t0 = time.perf_counter()
+    outs = [g(text, pause_hints=hints)[0] for g in gecs]
+    cold = time.perf_counter() - t0
+    idx_card, idx_cpu = ([r[0] for r in rec] for rec in records)
+    flips = sum(int((np.asarray(a) != np.asarray(b)).sum())
+                for a, b in zip(idx_card, idx_cpu) if np.shape(a) == np.shape(b))
+    same_calls = len(idx_card) == len(idx_cpu) and all(
+        np.shape(a) == np.shape(b) for a, b in zip(idx_card, idx_cpu))
+    log(f"gec {GEC_WORDS} words: card and CPU twin in {cold:.2f} s; iterations card "
+        f"{len(idx_card)} CPU {len(idx_cpu)}, rows a call {[r[2] for r in records[0]]} at "
+        f"T {[r[3] for r in records[0]]}; label argmax flips {flips}; restored texts equal "
+        f"{outs[0] == outs[1]}; {outs[0].count('.')} periods, {outs[0].count(',')} commas")
+    if same_calls and flips == 0:
+        assert outs[0] == outs[1], "gec: the argmax agrees but the texts differ"
+    assert outs[0] and outs[0] != text, "gec: nothing restored"
+
+    gec = gecs[0]
+    records[0].clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gec(text, pause_hints=hints)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    warm = list(records[0])
+    decode_s = sum(r[1] for r in warm)
+    minibatches = sum(-(-r[2] // gec.mini_batch_size) for r in warm)
+    busy, profiled = _profiled_busy(lambda: gec(text, pause_hints=hints))
+    log(f"gec {GEC_WORDS} words warm: wall {wall * 1e3:.1f} ms, {len(warm)} iterations "
+        f"({', '.join(f'{r[1] * 1e3:.1f}' for r in warm)} ms each, "
+        f"{minibatches} minibatches of {gec.mini_batch_size}), host outside the decode "
+        f"{(wall - decode_s) * 1e3:.1f} ms; under the profiler wall {profiled:.1f} ms, "
+        f"device busy {busy:.1f} ms ({card()})")
+
+
+def check_dnsmos(dev):
+    """(3) DNSMOS at full width on three 9.01 s windows, card against CPU
+    (raw scores within DNSMOS_GATE); a periodic Hann window, a planted
+    fault, must fail the gate. Returns the analyzer on the card."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import Dnsmos, random_dnsmos
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.quality import DNSMOS_LEN, QualityAnalyzer
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import event_ms
+
+    card_model = random_dnsmos(seed=0, device=dev)
+    with torch.no_grad():
+        card_model.head.bias.add_(DNSMOS_HEAD_BIAS)
+    twin = Dnsmos(card_model.cfg)
+    twin.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    analyzers = [QualityAnalyzer(model=m) for m in (card_model, twin.to("cpu"))]
+    rng = np.random.default_rng(12)
+    windows = [speechlike(rng, DNSMOS_LEN) * g for g in (1.0, 0.3, 0.05)]
+    got, ref = (a.raw_scores(windows) for a in analyzers)
+    err = float(np.abs(got - ref).max())
+    window = card_model.window
+    card_model.window = torch.hann_window(card_model.cfg.n_fft, periodic=True, device=dev)
+    try:
+        fault = float(np.abs(analyzers[0].raw_scores(windows) - ref).max())
+    finally:
+        card_model.window = window
+    batch = torch.from_numpy(np.stack(windows)).to(dev)
+    with torch.no_grad():
+        ms = event_ms(lambda: card_model(batch))
+    log(f"dnsmos: 3 x 9.01 s windows, raw scores card vs CPU max |d| {err:.3e} "
+        f"(gate {DNSMOS_GATE}); planted fault, periodic Hann: {fault:.3e}; forward "
+        f"{ms:.3f} ms of device time (CUDA events) ({card()})")
+    assert err <= DNSMOS_GATE, "dnsmos: card and CPU disagree"
+    assert fault > DNSMOS_GATE, "dnsmos: the periodic-window fault passes the gate"
+    return analyzers[0]
+
+
+def punct_cli(dev, model, card_vibert, analyzer, tmp):
+    """(4) `transcribe <100 s wav> --model <dir> --punctuate --quality
+    --diarize` in-process on a directory written by the port's exporters
+    (ASR, diarization, vibert-capu.onnx + vocab.txt, sig_bak_ovr.onnx);
+    then the same request through TranscriberPipeline, with DNSMOS
+    overlapped and synchronous."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_aux import (
+        export_dnsmos_file,
+        export_vibert_files,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_diar import (
+        export_diarization_files,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_rnnt import export_asr_dir
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import load_dnsmos
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import PureDiarizer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.gec import GecBert
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.punctuation import PunctuationRestorer
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+    from sherpa_vietnamese_asr_tpu_torch.utils.wordpiece import WordPieceTokenizer
+
+    card_diar, _ = diarizer_pair(dev)
+    model_dir = os.path.join(tmp, "zipformer-30m-rnnt-6000h")
+    t0 = time.perf_counter()
+    export_asr_dir(model, model_dir)
+    export_diarization_files(card_diar.seg_model, card_diar.emb_model, model_dir)
+    export_vibert_files(card_vibert, gec_vocab(), model_dir)
+    state, _ = load_dnsmos(export_dnsmos_file(analyzer.model, model_dir))
+    assert all(np.array_equal(v, analyzer.model.state_dict()[k].cpu().numpy())
+               for k, v in state.items()), "sig_bak_ovr.onnx: tensors differ"
+    log(f"punctuation cli: model directory written in {time.perf_counter() - t0:.2f} s")
+    path = os.path.join(tmp, "two_speakers_100s.wav")
+    write_wav(path, diarization_audio(DIAR_CLI_SECONDS), SR)
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    rc, _, err = run_cli(["transcribe", path, "--model", model_dir, "--punctuate", "--quality",
+                          "--diarize", "-v"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    assert rc == 0, f"cli --punctuate --quality --diarize exit {rc}: {err[-2000:]}"
+    random_lines = [line for line in err.splitlines() if "RANDOM weights" in line]
+    assert not any("ViBERT" in line for line in random_lines), \
+        "the ViBERT did not load from the directory"
+    phases = [line for line in err.splitlines() if line.startswith("PHASE:")]
+    for want in ("PHASE:Punctuation|Restoring punctuation|0", "PHASE:Align|Done|100",
+                 "PHASE:QualityAnalysis|Done|100", "PHASE:Diarization|Done|100"):
+        assert want in phases, f"cli: no {want}"
+    with open(path + ".asr.json", encoding="utf-8") as f:
+        data = json.load(f)
+    entries = data["segments"]
+    texts = [e for e in entries if e["type"] == "text"]
+    speakers = sorted({e["speaker_id"] for e in entries if e["type"] == "speaker"})
+    log(f"punctuation cli: wall {wall:.3f} s (models loaded from the directory), timing "
+        f"punctuation {data['timing']['punctuation']:.3f} s alignment "
+        f"{data['timing']['alignment']:.3f} s quality {data['timing']['quality']:.3f} s "
+        f"diarization {data['timing']['diarization']:.3f} s; {len(texts)} sentences, speakers "
+        f"{speakers}, launches {launches} ({card()})")
+    assert "quality_info" not in data, "the .asr.json writer wrote quality_info"
+    assert entries and entries[0]["type"] == "speaker", "cli: text before any speaker"
+    assert texts and any(t["text"].rstrip().endswith((".", "?")) for t in texts), \
+        "cli: no punctuated sentence"
+    assert all(n > 0 for n in launches.values()), "a kernel never ran on the cli path"
+
+    restorer = PunctuationRestorer(GecBert(card_vibert, WordPieceTokenizer(gec_vocab()),
+                                           confidence=0.3), confidence=0.3)
+    diar = PureDiarizer(seg_model=card_diar.seg_model, emb_model=card_diar.emb_model,
+                        device=dev)
+    config = {"speaker_diarization": True, "restore_punctuation": True,
+              "quality_analysis": True}
+    results, raw = {}, {}
+    raw_scores = analyzer.raw_scores
+    for overlap in (True, False):
+        analyzer.raw_scores = lambda w, o=overlap: raw.setdefault(o, raw_scores(w))
+        try:
+            results[overlap] = TranscriberPipeline(
+                path, model, dict(config, quality_overlap_decode=overlap), diarizer=diar,
+                punct_restorer=restorer, quality_analyzer=analyzer).run()
+        finally:
+            del analyzer.raw_scores
+    q = {o: r["quality_info"] for o, r in results.items()}
+    log(f"punctuation pipeline: quality_info overlapped {q[True]} "
+        f"(background {results[True]['timing']['quality_overlapped']:.3f} s, waited "
+        f"{results[True]['timing']['quality']:.3f} s), synchronous {q[False]} "
+        f"({results[False]['timing']['quality']:.3f} s); raw scores equal "
+        f"{np.array_equal(raw[True], raw[False])}: {raw[True].round(6).tolist()}")
+    assert q[True] and q[True] == q[False], "dnsmos: overlapped and synchronous differ"
+    assert np.array_equal(raw[True], raw[False]), "dnsmos: overlapped raw scores differ"
+    assert results[True]["text"] == results[False]["text"] == data["text"]
+    assert all(s.get("speaker") for s in results[True]["segments"])
+    return launches, restorer
+
+
+def punct_long(model, restorer, analyzer, tmp):
+    """(5) A warm 600 s request with punctuation and quality: wall time and
+    the timing keys."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import am_tone
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+
+    path = os.path.join(tmp, "long_600s.wav")
+    write_wav(path, am_tone(PUNCT_LONG_SECONDS, 4), SR)
+    config = {"bypass_vad": True, "restore_punctuation": True, "quality_analysis": True}
+
+    def run():
+        return TranscriberPipeline(path, model, config, punct_restorer=restorer,
+                                   quality_analyzer=analyzer).run()
+
+    run()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timing = {k: round(v, 4) for k, v in res["timing"].items()}
+    log(f"punctuation {PUNCT_LONG_SECONDS} s warm: wall {wall:.3f} s, "
+        f"{len(res['text'].split())} words in {len(res['segments'])} segments, quality "
+        f"{res['quality_info']}, timing {json.dumps(timing)} ({card()})")
+    assert res["quality_info"] and res["segments"]
+
+
+def phase_punctuation(dev, model, tmp):
+    """Punctuation and quality on the card: (1) ViBERT, (2) GecBert, (3)
+    DNSMOS, each against its CPU twin, (4) the CLI with --punctuate --quality
+    --diarize and the pipeline's overlapped DNSMOS, (5) a warm 600 s
+    request."""
+    t0 = time.perf_counter()
+    card_vibert, twin = vibert_pair(dev)
+    log(f"punctuation: ViBERT random (torch.Generator seed 0) on {dev} and the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_vibert(card_vibert, twin)
+    check_gec(card_vibert, twin)
+    del twin
+    analyzer = check_dnsmos(dev)
+    launches, restorer = punct_cli(dev, model, card_vibert, analyzer, tmp)
+    punct_long(model, restorer, analyzer, tmp)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -1911,7 +2398,11 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         launches_diar = phase_diarization(dev, model, tmp)
     log("PHASE diarization ok")
-    paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_punct = phase_punctuation(dev, model, tmp)
+    log("PHASE punctuation and quality ok")
+    paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
+             launches_punct)
     for k in kernels:  # each kernel's count from the first path that runs it
         k["route"] = "cuda"
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)

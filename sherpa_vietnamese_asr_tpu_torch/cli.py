@@ -5,14 +5,18 @@
 #
 #   python -m sherpa_vietnamese_asr_tpu_torch.cli transcribe <audio>
 #       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad]
-#       [--diarize [--num-speakers N]] ...
+#       [--diarize [--num-speakers N]] [--punctuate] [--quality] ...
 #       -> prints the text, writes <audio>.asr.json
 #
 # It runs on the card unless --device cpu is given; without a card the
 # default raises. --diarize runs the pure pyannote-Community-1 diarizer
 # (pipeline/diarization_pure.PureDiarizer) on the same device, its models
-# from the --model directory when it holds them. --punctuate and --quality
-# raise NotImplementedError until their stages are ported; the other
+# from the --model directory when it holds them. --punctuate restores
+# punctuation and case with ViBERT (pipeline/punctuation), its
+# vibert-capu.onnx and vocab.txt from the --model directory when it holds
+# them; --quality adds DNSMOS (pipeline/quality.QualityAnalyzer), from the
+# asset registry; both run on the same device, with loudly flagged random
+# weights when no checkpoint is found, as in the JAX CLI. The other
 # subcommands of the reference (serve, warmup, calibrate, ...) are not
 # ported yet.
 
@@ -65,19 +69,15 @@ def cmd_transcribe(args):
         TranscriberPipeline,
     )
 
-    for flag, stage in (("punctuate", "punctuation restoration"),
-                        ("quality", "DNSMOS quality analysis")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {stage} is not ported yet")
     device = model_device(args.device)
+    model_dir = args.model if os.path.isdir(args.model) else None
     model = _load_model(args)
     if args.hotwords_file:
         from sherpa_vietnamese_asr_tpu_torch.utils.config import (
             build_hotword_tables_for_model,
         )
-        model_dir = args.model if os.path.isdir(args.model) else "."
         tables, kept = build_hotword_tables_for_model(
-            model_dir, model.rnnt_cfg.vocab_size,
+            model_dir or ".", model.rnnt_cfg.vocab_size,
             hotwords_file=args.hotwords_file,
             default_score=args.hotwords_score)
         if tables is None:
@@ -93,6 +93,7 @@ def cmd_transcribe(args):
 
     config = {
         "speaker_diarization": args.diarize,
+        "restore_punctuation": args.punctuate,
         "max_batch": args.max_batch,
         "preprocess_rms_normalize": args.rms_normalize,
         "preprocess_wpe": args.wpe,
@@ -109,13 +110,22 @@ def cmd_transcribe(args):
         from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import (
             PureDiarizer,
         )
-        diarizer = PureDiarizer(
-            num_speakers=args.num_speakers or -1,
-            model_dir=args.model if os.path.isdir(args.model) else None,
-            device=device)
+        diarizer = PureDiarizer(num_speakers=args.num_speakers or -1,
+                                model_dir=model_dir, device=device)
+    punct_restorer = None
+    if args.punctuate:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.punctuation import (
+            build_punctuation_restorer,
+        )
+        punct_restorer = build_punctuation_restorer(model_dir=model_dir, device=device)
+    quality_analyzer = None
+    if args.quality:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.quality import QualityAnalyzer
+        quality_analyzer = QualityAnalyzer(device=device)
     pipeline = TranscriberPipeline(args.audio, model, config,
                                    progress_callback=progress,
-                                   diarizer=diarizer)
+                                   diarizer=diarizer, punct_restorer=punct_restorer,
+                                   quality_analyzer=quality_analyzer)
     t0 = time.time()
     if args.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]

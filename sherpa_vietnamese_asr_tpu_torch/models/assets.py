@@ -1,8 +1,8 @@
 # Copied from sherpa_vietnamese_asr_tpu/models/assets.py (host-only; only the package path changes).
-# Not copied yet: load_campp_asset, load_convtasnet_asset, load_vibert_asset
-# and load_dnsmos_asset, which come with the slices that port their models;
-# load_silero, load_segmentation and load_embedding_split return the port's
-# (state, cfg).
+# Not copied yet: load_campp_asset and load_convtasnet_asset, which come
+# with the slices that port their models; load_silero, load_segmentation,
+# load_embedding_split, load_vibert_asset and load_dnsmos_asset return the
+# port's (state, cfg).
 # Central model-asset registry: pinned identities, SHA256 verification,
 # discovery, cached loading, and the random-weight policy.
 #
@@ -293,6 +293,23 @@ def load_embedding_split(verify: bool = True):
         paths["embedding_encoder.onnx"],
         paths["resnet_seg_1_weight.npy"],
         paths["resnet_seg_1_bias.npy"]))
+
+
+def load_vibert_asset(verify: bool = True):
+    paths = asset_paths("vibert-capu", verify)
+    if paths is None:
+        return None
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import load_vibert
+    return _cached("vibert-capu", lambda: load_vibert(
+        paths["vibert-capu.onnx"]))
+
+
+def load_dnsmos_asset(verify: bool = True):
+    paths = asset_paths("dnsmos", verify)
+    if paths is None:
+        return None
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import load_dnsmos
+    return _cached("dnsmos", lambda: load_dnsmos(paths["sig_bak_ovr.onnx"]))
 
 
 def asr_model_dir(key: str = "zipformer-30m"):

@@ -6,8 +6,10 @@
 # and loads them into ZipformerEncoder / Decoder / Joiner (and the Silero
 # VAD tree into models/silero_vad.SileroVad, the PyanNet and ResNet34
 # diarization trees into models/pyannet.PyanNet and
-# models/resnet_speaker.ResNetSpeaker) with every layout change done here, so
-# the same weights run through both packages.
+# models/resnet_speaker.ResNetSpeaker, the ViBERT tree, float32 or int8, into
+# models/vibert.ViBert and the DNSMOS tree into models/dnsmos.Dnsmos) with
+# every layout change done here, so the same weights run through both
+# packages.
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from sherpa_vietnamese_asr_tpu_torch.models.registry import (
     build_modules,
     model_device,
 )
+from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import Dnsmos, DnsmosConfig
 from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
 from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
     ResNetSpeaker,
@@ -26,6 +29,7 @@ from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
 )
 from sherpa_vietnamese_asr_tpu_torch.models.rnnt import RnntConfig
 from sherpa_vietnamese_asr_tpu_torch.models.silero_vad import SileroVad, SileroVadConfig
+from sherpa_vietnamese_asr_tpu_torch.models.vibert import ViBert, ViBertConfig
 from sherpa_vietnamese_asr_tpu_torch.models.zipformer import ZipformerConfig
 
 
@@ -225,5 +229,75 @@ def resnet_from_numpy(state, cfg: ResNetSpeakerConfig, device="cuda") -> ResNetS
     or models/onnx_import.load_resnet_speaker)."""
     device = model_device(device)
     model = ResNetSpeaker(cfg)
+    _load(model, state)
+    return model.to(device)
+
+
+def _vibert_linear(out, prefix, p):
+    """A float32 linear, or the int8 tier's (weight_q [in, out] int8 and
+    weight_scale [out])."""
+    if "weight_q" in p:
+        out[f"{prefix}.weight_q"] = np.asarray(p["weight_q"]).T
+        out[f"{prefix}.weight_scale"] = np.asarray(p["weight_scale"])
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    else:
+        _linear(out, prefix, p)
+
+
+def _layer_norm(out, prefix, p):
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def vibert_state_dict(params) -> dict:
+    """JAX ViBERT tree (float32 or quantize_vibert_int8's) -> ViBert state
+    dict (numpy values, the Hugging Face names): linears transposed to
+    [out, in], layer norms' scale as weight."""
+    out = {"bert.embeddings.word_embeddings.weight": np.asarray(params["word_emb"]),
+           "bert.embeddings.position_embeddings.weight": np.asarray(params["pos_emb"]),
+           "bert.embeddings.token_type_embeddings.weight": np.asarray(params["type_emb"])}
+    _layer_norm(out, "bert.embeddings.LayerNorm", params["emb_ln"])
+    for i, lp in enumerate(params["layers"]):
+        pre = f"bert.encoder.layer.{i}"
+        for src, dst in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                         ("v", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                         ("ffn_in", "intermediate.dense"), ("ffn_out", "output.dense")):
+            _vibert_linear(out, f"{pre}.{dst}", lp[src])
+        _layer_norm(out, f"{pre}.attention.output.LayerNorm", lp["attn_ln"])
+        _layer_norm(out, f"{pre}.output.LayerNorm", lp["ffn_ln"])
+    _vibert_linear(out, "classifier", params["labels_head"])
+    _vibert_linear(out, "detector", params["d_tags_head"])
+    return out
+
+
+def vibert_from_numpy(state, cfg: ViBertConfig, device="cuda") -> ViBert:
+    """A ViBert on `device`, the card by default (raises without one), from
+    a ViBert state dict of numpy arrays (vibert_state_dict, or
+    models/onnx_import.load_vibert); the int8 tier when the state holds
+    weight_q tensors."""
+    device = model_device(device)
+    model = ViBert(cfg, int8=any(k.endswith(".weight_q") for k in state))
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in state.items()})
+    return model.to(device)
+
+
+def dnsmos_state_dict(params) -> dict:
+    """JAX DNSMOS tree -> Dnsmos state dict (numpy values): conv kernels
+    HWIO -> OIHW, dense weights transposed, the mel matrix as it is."""
+    out = {"mel": np.asarray(params["mel"])}
+    for i, conv in enumerate(params["convs"]):
+        _conv2d(out, f"convs.{i}", conv)
+    _linear(out, "dense1", params["dense1"])
+    _linear(out, "head", params["head"])
+    return out
+
+
+def dnsmos_from_numpy(state, cfg: DnsmosConfig, device="cuda") -> Dnsmos:
+    """A Dnsmos on `device`, the card by default (raises without one), from
+    a Dnsmos state dict of numpy arrays (dnsmos_state_dict, or
+    models/onnx_import.load_dnsmos)."""
+    device = model_device(device)
+    model = Dnsmos(cfg)
     _load(model, state)
     return model.to(device)

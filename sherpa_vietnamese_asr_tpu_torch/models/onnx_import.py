@@ -753,3 +753,128 @@ def load_resnet_speaker(encoder_onnx_path, weight_npy_path, bias_npy_path,
                                f"{state[key].shape}")
         state[key] = arr.astype(np.float32)
     return state, cfg
+
+
+def vibert_name_map(cfg):
+    """Hugging Face BERT names of vibert-capu.onnx (BertModel as `bert`, the
+    `classifier` and `detector` heads) -> ViBert state-dict keys: the same
+    names, the module mirrors the upstream tree."""
+    from sherpa_vietnamese_asr_tpu_torch.models.vibert import ViBert
+
+    return {k: (k, None) for k in ViBert(cfg).state_dict()}
+
+
+def load_vibert(path, cfg=None):
+    """Load vibert-capu.onnx into (state, cfg) for models/vibert.ViBert. The
+    config is inferred from the initializers unless given (vocab, hidden,
+    layers, intermediate, positions, labels, detect tags), with heads =
+    hidden // 64 (the BERT convention)."""
+    from sherpa_vietnamese_asr_tpu_torch.models.vibert import ViBert, ViBertConfig
+
+    init = _strip_prefixes(read_onnx(path)["initializers"])
+    if cfg is None:
+        we = init.get("bert.embeddings.word_embeddings.weight")
+        if we is None:
+            raise ImportReport(
+                "[vibert] bert.embeddings.word_embeddings.weight not found; "
+                f"first names: {sorted(init)[:8]}")
+        vocab, hidden = we.shape
+        layers = 0
+        while f"bert.encoder.layer.{layers}.attention.self.query.weight" in init:
+            layers += 1
+        cfg = ViBertConfig(
+            vocab_size=vocab, hidden=hidden, layers=layers,
+            heads=max(1, hidden // 64),
+            intermediate=init["bert.encoder.layer.0.intermediate.dense.weight"].shape[0],
+            max_position=init["bert.embeddings.position_embeddings.weight"].shape[0],
+            n_labels=init["classifier.weight"].shape[0],
+            n_d_tags=init["detector.weight"].shape[0])
+    state = _template(ViBert(cfg))
+    map_initializers(init, vibert_name_map(cfg), state, label="vibert",
+                     fallback_match=True)
+    return state, cfg
+
+
+def load_dnsmos(path, cfg=None):
+    """Load DNSMOS sig_bak_ovr.onnx into (state, cfg) for models/dnsmos.Dnsmos.
+
+    The export came from TF/Keras, so its initializer names are not
+    torch-style; the mapping is structural, as the JAX package's: 3x3 conv
+    kernels in graph order (HWIO natively, or [O, I, 3, 3]), chained by
+    their input channels, then the last two dense layers by shape, each
+    bias the first unused 1-D tensor of its width. Raises ImportReport when
+    the structure differs."""
+    from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import DnsmosConfig, _mel_matrix
+
+    g = read_onnx(path)
+    init = g["initializers"]
+    order = []  # graph order: weight-bearing node inputs, then the rest
+    for _op, ins, _outs, _name in g["nodes"]:
+        for name in ins:
+            if name in init and name not in order:
+                order.append(name)
+    for name in init:
+        if name not in order:
+            order.append(name)
+
+    convs, denses, biases = [], [], {}
+    for name in order:
+        a = init[name]
+        if a.ndim == 4 and 3 in a.shape:
+            if a.shape[0] == 3 and a.shape[1] == 3:  # HWIO (TF native)
+                convs.append(a)
+            elif a.shape[2] == 3 and a.shape[3] == 3:  # OIHW (torch-style)
+                convs.append(np.transpose(a, (2, 3, 1, 0)))
+        elif a.ndim == 2:
+            denses.append(a)
+        elif a.ndim == 1:
+            biases[name] = a
+    if len(convs) < 2 or len(denses) < 2:
+        raise ImportReport(
+            f"[dnsmos] structural scan found {len(convs)} convs / "
+            f"{len(denses)} denses; names: {sorted(init)[:12]}")
+
+    chain = []
+    c_in = 1
+    for a in convs:
+        if a.shape[2] != c_in:
+            a = np.transpose(a, (0, 1, 3, 2))
+        if a.shape[2] != c_in:
+            raise ImportReport(
+                f"[dnsmos] conv chain broken at {a.shape} (want in={c_in})")
+        chain.append(a)
+        c_in = a.shape[3]
+
+    def dense_to(d, d_in):
+        if d.shape[0] == d_in:
+            return d
+        if d.shape[1] == d_in:
+            return d.T
+        raise ImportReport(f"[dnsmos] dense {d.shape} does not take {d_in}")
+
+    d1 = dense_to(denses[-2], c_in)
+    head = dense_to(denses[-1], d1.shape[1])
+    if head.shape[1] != 3:
+        raise ImportReport(f"[dnsmos] head {head.shape} is not 3-wide")
+    if cfg is None:
+        cfg = DnsmosConfig(channels=tuple(a.shape[3] for a in chain), dense=d1.shape[1])
+
+    used = set()
+
+    def find_bias(c):
+        for name, b in biases.items():
+            if b.shape[0] == c and name not in used:
+                used.add(name)
+                return b
+        return np.zeros((c,), np.float32)
+
+    f32 = np.float32
+    state = {"mel": _mel_matrix(cfg).T.astype(f32)}
+    for i, a in enumerate(chain):  # HWIO -> OIHW
+        state[f"convs.{i}.weight"] = np.transpose(a, (3, 2, 0, 1)).astype(f32)
+        state[f"convs.{i}.bias"] = find_bias(a.shape[3]).astype(f32)
+    state["dense1.weight"] = d1.T.astype(f32)
+    state["dense1.bias"] = find_bias(d1.shape[1]).astype(f32)
+    state["head.weight"] = head.T.astype(f32)
+    state["head.bias"] = find_bias(3).astype(f32)
+    return state, cfg

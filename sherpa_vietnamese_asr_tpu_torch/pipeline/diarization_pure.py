@@ -15,9 +15,8 @@
 # the speaker count, overlap regions, clustering, canonicalization and
 # reconstruction), with one exception: with num_speakers below the number
 # of VBx clusters the JAX package runs scikit-learn's KMeans, which the
-# card's host does not have; kmeans() below is a numpy k-means (k-means++
-# seeding from default_rng(42), 3 inits, Lloyd to convergence, best
-# inertia). The device stages are rewritten in torch: the fused superblock
+# card's host does not have; kmeans() below reproduces it in numpy (its
+# header says where the two can still differ). The device stages are rewritten in torch: the fused superblock
 # (_superblock_body, one upload of the int16 span, PyanNet over in-graph
 # overlapped windows, one whole-span fbank through kernel 1 with per-chunk
 # CMVN, ResNet34 frame features, masked statistics pooling and the
@@ -308,48 +307,167 @@ def vbx_cluster(fea, plda_psi, ahc_labels, fa, fb, max_iters=20):
         prev_elbo = elbo
     return gamma, pi
 
+_KMEANS_CHUNK = 256  # scikit-learn's Lloyd chunk (CHUNK_SIZE of _k_means_lloyd.pyx)
+
+
+def _sq_dist(a, b):
+    """Squared distances [len(a), len(b)] as scikit-learn's
+    _euclidean_distances gives them to k-means++: -2 a.b + |a|^2 + |b|^2,
+    floored at 0; float32 rows go through float64 in its blocks of rows
+    (_euclidean_distances_upcast) and come back as float32."""
+    if a.dtype != np.float32:
+        d = -2 * (a @ b.T)
+        d += np.einsum("ij,ij->i", a, a)[:, None]
+        d += np.einsum("ij,ij->i", b, b)[None, :]
+        return np.maximum(d, 0)
+    n_a, n_b, dim = len(a), len(b), a.shape[1]
+    maxmem = max(((n_a + n_b) * dim + n_a * n_b) / 10, 10 * 2 ** 17)
+    batch = max(int((-2 * dim + math.sqrt((2 * dim) ** 2 + 4 * maxmem)) / 2), 1)
+    out = np.empty((n_a, n_b), np.float32)
+    for i in range(0, n_a, batch):
+        a64 = a[i: i + batch].astype(np.float64)
+        a_sq = np.einsum("ij,ij->i", a64, a64)[:, None]
+        for j in range(0, n_b, batch):
+            b64 = b[j: j + batch].astype(np.float64)
+            d = -2 * (a64 @ b64.T)
+            d += a_sq
+            d += np.einsum("ij,ij->i", b64, b64)[None, :]
+            out[i: i + batch, j: j + batch] = d
+    return np.maximum(out, 0)
+
+
+def _kmeans_plusplus(x, n_clusters, rs):
+    """Greedy k-means++ seeding with 2 + int(log k) local trials a centre,
+    drawing from the RandomState `rs` in scikit-learn's order."""
+    n = len(x)
+    weight = np.ones(n, x.dtype)
+    n_trials = 2 + int(np.log(n_clusters))
+    centres = np.empty((n_clusters, x.shape[1]), x.dtype)
+    centres[0] = x[rs.choice(n, p=weight / weight.sum())]
+    closest = _sq_dist(centres[0:1], x)
+    pot = closest @ weight
+    for c in range(1, n_clusters):
+        rand = rs.uniform(size=n_trials) * pot
+        ids = np.searchsorted(np.cumsum(weight * closest), rand)
+        np.clip(ids, None, closest.size - 1, out=ids)
+        cand = np.minimum(closest, _sq_dist(x[ids], x))
+        cand_pot = cand @ weight.reshape(-1, 1)
+        best = np.argmin(cand_pot)
+        pot, closest = cand_pot[best], cand[best]
+        centres[c] = x[ids[best]]
+    return centres
+
+
+def _assign(x, centres):
+    """Nearest centre of each row (first on ties): |c|^2 - 2 x.c from the
+    same BLAS gemm call scikit-learn's Lloyd step makes, chunk by chunk."""
+    from scipy.linalg.blas import get_blas_funcs
+
+    gemm = get_blas_funcs("gemm", (x,))
+    c_sq = np.einsum("ij,ij->i", centres, centres)
+    labels = np.empty(len(x), np.int32)
+    for s in range(0, len(x), _KMEANS_CHUNK):
+        xc = x[s: s + _KMEANS_CHUNK]
+        d = np.repeat(c_sq[:, None], len(xc), axis=1)  # [k, chunk], column-major C
+        d = gemm(-2.0, centres.T, xc.T, 1.0, np.asfortranarray(d), trans_a=1,
+                 overwrite_c=1)
+        labels[s: s + len(xc)] = d.argmin(axis=0)
+    return labels
+
+
+def _sq_norm_rows(a):
+    """scikit-learn's _euclidean_dense_dense(squared=True) on each row:
+    four squares a step, summed left to right, added to the running sum."""
+    sq = a * a
+    n4 = a.shape[1] // 4 * 4
+    total = np.zeros(len(a), a.dtype)
+    for i in range(0, n4, 4):
+        total += ((sq[:, i] + sq[:, i + 1]) + sq[:, i + 2]) + sq[:, i + 3]
+    for i in range(n4, a.shape[1]):
+        total += sq[:, i]
+    return total
+
+
+def _lloyd(x, centres, max_iter, tol):
+    """scikit-learn's _kmeans_single_lloyd: (labels, inertia)."""
+    k = len(centres)
+    labels_old = np.full(len(x), -1, np.int32)
+    strict = False
+    for _ in range(max_iter):
+        labels = _assign(x, centres)
+        new = np.zeros_like(centres)
+        np.add.at(new, labels, x)  # row by row, in sample order
+        weight = np.bincount(labels, minlength=k).astype(x.dtype)
+        empty = np.flatnonzero(weight == 0)
+        if len(empty):  # _relocate_empty_clusters_dense
+            dist = ((x - centres[labels]) ** 2).sum(axis=1)
+            far = np.argpartition(dist, -len(empty))[:-len(empty) - 1:-1]
+            if dist.max() != 0:
+                for new_id, far_id in zip(empty, far):
+                    old_id = labels[far_id]
+                    new[old_id] -= x[far_id]
+                    new[new_id] = x[far_id]
+                    weight[new_id] = 1
+                    weight[old_id] -= 1
+        biggest = np.argmax(weight)  # _average_centers
+        for j in range(k):
+            if weight[j] > 0:
+                new[j] *= x.dtype.type(1.0 / float(weight[j]))
+            else:
+                new[j] = new[biggest]
+        shift = np.sqrt(_sq_norm_rows(new - centres))
+        centres = new
+        if np.array_equal(labels, labels_old):
+            strict = True
+            break
+        if (shift ** 2).sum() <= tol:
+            break
+        labels_old[:] = labels
+    if not strict:
+        labels = _assign(x, centres)
+    inertia = x.dtype.type(0)
+    for d in _sq_norm_rows(x - centres[labels]):
+        inertia += d
+    return labels, inertia
+
+
+def _same_clustering(a, b, k):
+    mapping = np.full(k, -1)
+    for p, q in zip(a, b):
+        if mapping[p] == -1:
+            mapping[p] = q
+        elif mapping[p] != q:
+            return False
+    return True
+
+
 def kmeans(x, n_clusters, n_init=3, seed=42, max_iter=300, tol=1e-4):
-    """Labels [N] of a k-means partition of x [N, D]: k-means++ seeding from
-    np.random.default_rng(seed), n_init runs of Lloyd's iterations until the
-    centres move less than tol times the mean per-dimension variance (the
-    tolerance scikit-learn uses), the run of least inertia kept. Empty
-    clusters take the point farthest from its centre."""
-    x = np.asarray(x, np.float64)
-    rng = np.random.default_rng(seed)
-    tol_abs = tol * float(np.mean(np.var(x, axis=0)))
+    """Labels [N] of KMeans(n_clusters, n_init, random_state=seed).fit(x) as
+    scikit-learn (1.9) computes them: the rows centred on their mean, in
+    x's dtype (float32 stays float32); np.random.RandomState(seed) drives
+    every draw; greedy k-means++ seeding (2 + int(log k) local trials a
+    centre); Lloyd's iterations until the labels repeat or the centres'
+    squared shift is at most tol times the mean per-dimension variance,
+    empty clusters refilled from the farthest points, a final relabel; the
+    run of least inertia kept unless it is the same partition.
 
-    def sq_dist(centres):
-        return ((x[:, None, :] - centres[None, :, :]) ** 2).sum(axis=-1)
-
+    What remains different: scikit-learn sums each cluster's members and
+    the inertia in OpenMP threads, over blocks of rows merged in whatever
+    order the threads finish, when x has more than 256 rows. Here they are
+    summed row by row in order, as scikit-learn does with one thread. The
+    centres can then differ in their last bit, which changes a label only
+    where a row sits at an exact tie between two centres."""
+    x = np.array(x, dtype=x.dtype if x.dtype in (np.float32, np.float64)
+                 else np.float64)
+    tol_abs = np.mean(np.var(x, axis=0)) * tol
+    x -= x.mean(axis=0)
+    rs = np.random.RandomState(seed)
     best = None
     for _ in range(n_init):
-        centres = [x[rng.integers(len(x))]]
-        for _ in range(1, n_clusters):
-            d = sq_dist(np.asarray(centres)).min(axis=1)
-            total = d.sum()
-            p = d / total if total > 0 else np.full(len(x), 1.0 / len(x))
-            centres.append(x[rng.choice(len(x), p=p)])
-        centres = np.asarray(centres)
-        for _ in range(max_iter):
-            d = sq_dist(centres)
-            labels = d.argmin(axis=1)
-            new = centres.copy()
-            for k in range(n_clusters):
-                members = labels == k
-                if members.any():
-                    new[k] = x[members].mean(axis=0)
-                else:
-                    far = d[np.arange(len(x)), labels].argmax()
-                    new[k] = x[far]
-                    labels[far] = k
-            shift = float(((new - centres) ** 2).sum())
-            centres = new
-            if shift <= tol_abs:
-                break
-        d = sq_dist(centres)
-        labels = d.argmin(axis=1)
-        inertia = float(d[np.arange(len(x)), labels].sum())
-        if best is None or inertia < best[0]:
+        labels, inertia = _lloyd(x, _kmeans_plusplus(x, n_clusters, rs),
+                                 max_iter, tol_abs)
+        if best is None or (inertia < best[0]
+                            and not _same_clustering(labels, best[1], n_clusters)):
             best = (inertia, labels)
     return best[1]
 

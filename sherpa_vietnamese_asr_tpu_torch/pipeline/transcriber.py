@@ -6,18 +6,22 @@
 # resume checkpoint and result contract. Stage order:
 #   load audio -> [resume from a checkpoint] -> VAD (Silero on the model's
 #   device, a caller's vad_prob_fn, or bypass_vad) -> [preprocess] ->
-#   [diarization facade started in the background] -> silence-aware
-#   30 s/3 s chunk plan -> batched decode [per-chunk WPE] [-> ROVER over a
-#   model pair] -> overlap merge -> suspect detect -> filler removal ->
-#   [speaker diarization] -> pause segmentation [-> words split by speaker]
-#   -> result.
-# Stages not ported yet raise NotImplementedError instead of being skipped:
-# punctuation, DNSMOS quality and overlap separation.
+#   [diarization facade started in the background] -> [DNSMOS quality in a
+#   background thread, on its own CUDA stream] -> silence-aware 30 s/3 s
+#   chunk plan -> batched decode [per-chunk WPE] [-> ROVER over a model
+#   pair] -> overlap merge -> suspect detect -> filler removal -> [quality
+#   result] -> [speaker diarization] -> [punctuation, then sentences aligned
+#   to words (and speakers)] or pause segmentation [-> words split by
+#   speaker] -> result.
+# max_batch 0, None or a negative value resolves once, on the model's
+# device (pipeline/calibration.resolve_max_batch). Overlap separation is not
+# ported yet and raises NotImplementedError instead of being skipped.
 #
-# One difference in behaviour: the JAX pipeline catches a diarization
-# failure, logs it and returns a result without speakers. Here it
-# propagates out of run(), so a diarization that fails on the card can
-# never end in a run that looks successful.
+# One difference in behaviour: the JAX pipeline catches a failure of the
+# diarization, punctuation or quality stage, logs it and returns a result
+# without speakers, punctuation or quality. Here it propagates out of
+# run(), so a stage that fails on the card can never end in a run that
+# looks successful.
 
 from __future__ import annotations
 
@@ -25,11 +29,21 @@ import json
 import os
 import time
 
+import threading
+
 import numpy as np
+import torch
 
 from sherpa_vietnamese_asr_tpu_torch.models.registry import AsrModel
 from sherpa_vietnamese_asr_tpu_torch.pipeline import chunking, vad as vad_mod
 from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_post as dp
+from sherpa_vietnamese_asr_tpu_torch.pipeline.alignment import (
+    align_sentences,
+    align_sentences_with_speakers,
+    build_pause_hints,
+    split_sentences,
+)
+from sherpa_vietnamese_asr_tpu_torch.pipeline.calibration import resolve_max_batch
 from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder
 from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization import (
     SPEAKER_EMBEDDING_MODELS,
@@ -57,7 +71,7 @@ from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import is_int16_exact, load_
 SAMPLE_RATE = 16000
 
 # config flags of the JAX pipeline whose stages are not ported yet
-_UNPORTED_FLAGS = ("quality_analysis", "overlap_separation")
+_UNPORTED_FLAGS = ("overlap_separation",)
 
 
 def segment_words_by_pause(all_words, max_words=15, pause_sec=0.8):
@@ -106,10 +120,14 @@ class TranscriberPipeline:
         model: AsrModel bundle, or (model_a, model_b) for ROVER.
         config: dict. Supported keys: bypass_vad, skip_preprocessing,
             preprocess_rms_normalize, preprocess_wpe, enable_resume,
-            hotword_phrases (ROVER's hotword bonus), max_batch (default 8),
+            hotword_phrases (ROVER's hotword bonus), max_batch (default 8;
+            0, None or negative: automatic), calibration_report,
             decode_transfer_dtype ("float32" | "int16"),
             speaker_diarization (with speaker_model, num_speakers,
-            diarization_threshold, diarize_overlap_decode).
+            diarization_threshold, diarize_overlap_decode),
+            restore_punctuation (with bypass_restorer,
+            punctuation_confidence, case_confidence, prefer_int8),
+            quality_analysis (with quality_overlap_decode).
         progress_callback: callable(str) receiving "PHASE:<Name>|<msg>|<pct>".
         cancel_check: callable() -> bool.
         vad_prob_fn: callable(audio) -> per-window speech probabilities;
@@ -118,11 +136,17 @@ class TranscriberPipeline:
         diarizer: a PureDiarizer (its raw segments are post-processed here)
             or a SpeakerDiarizer facade; with config speaker_diarization and
             no diarizer, a facade on the model's device.
+        punct_restorer: a pipeline.punctuation.PunctuationRestorer; with
+            config restore_punctuation and none given, one from
+            build_punctuation_restorer on the model's device.
+        quality_analyzer: a pipeline.quality.QualityAnalyzer; with config
+            quality_analysis and none given, one on the model's device.
     """
 
     def __init__(self, file_path, model: AsrModel, config=None,
                  progress_callback=None, cancel_check=None,
-                 vad_prob_fn=None, diarizer=None):
+                 vad_prob_fn=None, punct_restorer=None, diarizer=None,
+                 quality_analyzer=None):
         self.file_path = file_path
         if isinstance(model, (tuple, list)):
             self.model, self.model_b = model[0], model[1]
@@ -132,22 +156,14 @@ class TranscriberPipeline:
         for flag in _UNPORTED_FLAGS:
             if self.config.get(flag, False):
                 raise NotImplementedError(f"config {flag!r} is not ported yet")
-        if (self.config.get("restore_punctuation", False)
-                and not self.config.get("bypass_restorer", False)):
-            raise NotImplementedError("punctuation restoration is not ported yet")
-        # An absent key keeps 8; 0, None or a negative value means "auto" in
-        # the JAX package (pipeline/calibration.resolve_max_batch).
-        max_batch = self.config.get("max_batch", 8)
-        if max_batch is None or int(max_batch) <= 0:
-            raise NotImplementedError(
-                f"config max_batch={max_batch!r} asks for automatic batch sizing, "
-                "which needs the calibration report (pipeline/calibration.py): "
-                "not ported yet; pass a positive max_batch")
-        self.max_batch = int(max_batch)
+        # An absent key keeps 8; 0, None or a negative value means "auto".
+        self.max_batch = resolve_max_batch(self.config, device=self.model.device)
         self.progress_callback = progress_callback
         self.cancel_check = cancel_check
         self.vad_prob_fn = vad_prob_fn
+        self.punct_restorer = punct_restorer
         self.diarizer = diarizer
+        self.quality_analyzer = quality_analyzer
         # Callers that pass only the config dict get the facade.
         if (self.diarizer is None
                 and self.config.get("speaker_diarization", False)):
@@ -159,6 +175,22 @@ class TranscriberPipeline:
                 num_clusters=int(self.config.get("num_speakers", 0)) or -1,
                 threshold=float(self.config.get("diarization_threshold", 0.6)),
                 backend_kwargs={"device": self.model.device})
+        if (self.quality_analyzer is None
+                and self.config.get("quality_analysis", False)):
+            from sherpa_vietnamese_asr_tpu_torch.pipeline.quality import QualityAnalyzer
+            self.quality_analyzer = QualityAnalyzer(device=self.model.device)
+        if (self.punct_restorer is None
+                and self.config.get("restore_punctuation", False)
+                and not self.config.get("bypass_restorer", False)):
+            from sherpa_vietnamese_asr_tpu_torch.pipeline.punctuation import (
+                build_punctuation_restorer,
+            )
+            self.punct_restorer = build_punctuation_restorer(
+                confidence=float(self.config.get("punctuation_confidence", 0.3)),
+                case_confidence=float(self.config.get("case_confidence", 0.0)),
+                prefer_int8=bool(self.config.get("prefer_int8", False)),
+                device=self.model.device)
+        self._quality_bg = None
         self._phase_file = str(file_path) + ".asr_phase"
 
     def _decoder(self, transfer_dtype=None, chunk_transform=None):
@@ -183,8 +215,8 @@ class TranscriberPipeline:
 
     def run(self):
         t0 = time.time()
-        timing = {"transcription": 0.0, "alignment": 0.0, "vad": 0.0,
-                  "preprocessing": 0.0}
+        timing = {"transcription": 0.0, "punctuation": 0.0, "alignment": 0.0,
+                  "quality": 0.0, "vad": 0.0, "preprocessing": 0.0}
         try:
             return self._run(t0, timing)
         finally:
@@ -246,8 +278,9 @@ class TranscriberPipeline:
         ckpt = self._load_checkpoint()
         if ckpt is not None:
             self._emit("PHASE:Transcription|Resuming from checkpoint|100")
-            return self._finish(t0, timing, audio, total_samples,
-                                ckpt["all_words"], ckpt["full_text"])
+            return self._finish(
+                t0, timing, audio, total_samples, ckpt["all_words"],
+                ckpt["full_text"], audio[: ckpt.get("concat_len", total_samples)])
 
         # ---- VAD -> concat -> chunk plan ----
         t_vad = time.time()
@@ -299,6 +332,14 @@ class TranscriberPipeline:
             self._emit("PHASE:Transcription|Transcribing "
                        "(diarization in background)|0")
             self.diarizer.start_background(audio)
+
+        # ---- DNSMOS quality overlapped with decode ----
+        # analyze_speech needs only the speech-only audio: a thread runs it
+        # on its own CUDA stream while the decode's batches run on the
+        # default one; _finish() waits for it.
+        if (self.quality_analyzer is not None
+                and self.config.get("quality_overlap_decode", True)):
+            self._start_quality(concat_audio)
 
         silent = chunking.find_silent_regions(concat_audio)
         plan = chunking.plan_chunks(len(concat_audio), silent)
@@ -372,17 +413,98 @@ class TranscriberPipeline:
         self._save_checkpoint(all_words, full_text, len(concat_audio),
                               vad_probs)
         return self._finish(t0, timing, audio, total_samples, all_words,
-                            full_text)
+                            full_text, concat_audio)
+
+    def _start_quality(self, concat_audio):
+        analyzer = self.quality_analyzer
+        device = analyzer.device
+        qbg = {"done": threading.Event()}
+        ready = None
+        if device.type == "cuda":  # all the caller enqueued so far: the weights' upload
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+
+        def worker():
+            t_q = time.time()
+            try:
+                if ready is None:
+                    qbg["result"] = analyzer.analyze_speech(concat_audio)
+                else:
+                    stream = torch.cuda.Stream(device)
+                    stream.wait_event(ready)
+                    with torch.cuda.stream(stream):
+                        qbg["result"] = analyzer.analyze_speech(concat_audio)
+                    stream.synchronize()
+            except Exception as e:  # re-raised by _finish
+                qbg["error"] = e
+            finally:
+                qbg["sec"] = time.time() - t_q
+                qbg["done"].set()
+
+        qbg["thread"] = threading.Thread(target=worker, daemon=True,
+                                         name="svt-quality-bg")
+        self._quality_bg = qbg
+        qbg["thread"].start()
+
+    def _quality(self, concat_audio, timing):
+        """quality_info: the background pass's result when it ran, else
+        analyze_speech now; timing keys quality (what the stage cost the
+        pipeline) and quality_overlapped (the background pass's own time)."""
+        t_q = time.time()
+        qbg, self._quality_bg = self._quality_bg, None
+        quality_info = None
+        if qbg is not None:
+            self._emit("PHASE:QualityAnalysis|Analyzing audio quality|0")
+            qbg["done"].wait()
+            if "error" in qbg:
+                raise qbg["error"]
+            quality_info = qbg.get("result")
+            self._emit("PHASE:QualityAnalysis|Done|100")
+        if quality_info is None:
+            self._emit("PHASE:QualityAnalysis|Analyzing audio quality|0")
+            quality_info = self.quality_analyzer.analyze_speech(concat_audio)
+            self._emit("PHASE:QualityAnalysis|Done|100")
+        timing["quality"] = time.time() - t_q
+        if qbg is not None:
+            timing["quality_overlapped"] = qbg.get("sec", 0.0)
+        return quality_info
+
+    def _punctuate(self, full_text, all_words, word_speaker, timing):
+        """(text, segments): the restored text and its sentences aligned
+        to the words, split by speaker when diarized."""
+        t_punct = time.time()
+        self._emit("PHASE:Punctuation|Restoring punctuation|0")
+        pause_hints = build_pause_hints(all_words, word_speaker=word_speaker)
+        full_text = self.punct_restorer.restore(full_text, pause_hints=pause_hints)
+        timing["punctuation"] = time.time() - t_punct
+        t_align = time.time()
+        self._emit("PHASE:Align|Aligning timestamps|0")
+        sentences = split_sentences(full_text)
+        if word_speaker is not None:
+            names = [dp.speaker_name(s) for s in word_speaker]
+            segments = align_sentences_with_speakers(sentences, all_words,
+                                                     word_speaker, names)
+            segments = dp.smooth_speaker_boundary_fragments(segments)
+        else:
+            segments = align_sentences(sentences, all_words)
+        timing["alignment"] = time.time() - t_align
+        return full_text, segments
 
     def _diarize(self):
         return (self.config.get("speaker_diarization", False)
                 and self.diarizer is not None)
 
-    def _finish(self, t0, timing, audio, total_samples, all_words, full_text):
-        """Speaker diarization, pause segmentation and result assembly.
-        Entered either from a live decode or from a resume checkpoint."""
+    def _finish(self, t0, timing, audio, total_samples, all_words, full_text,
+                concat_audio):
+        """Quality, speaker diarization, punctuation and alignment (or pause
+        segmentation) and result assembly. Entered either from a live
+        decode or from a resume checkpoint."""
+        quality_info = None
+        if self.quality_analyzer is not None:
+            quality_info = self._quality(concat_audio, timing)
         raw_speaker_segments = None
         speaker_segments_raw = []
+        word_speaker = None
         if self._diarize() and all_words:
             t_diar = time.time()
             self._emit("PHASE:Diarization|Detecting speakers|0")
@@ -407,17 +529,26 @@ class TranscriberPipeline:
                 "start": s.start, "end": s.end,
                 "duration": s.end - s.start,
             } for s in raw_speaker_segments]
+            word_speaker = dp.speaker_labels_for_words(all_words,
+                                                       raw_speaker_segments)
             self._emit("PHASE:Diarization|Done|100")
             timing["diarization"] = time.time() - t_diar
         if self._cancelled():
             return None
+        final_segments = []
+        if (self.config.get("restore_punctuation", False)
+                and not self.config.get("bypass_restorer", False)
+                and self.punct_restorer is not None and full_text):
+            full_text, final_segments = self._punctuate(full_text, all_words,
+                                                        word_speaker, timing)
         t_align = time.time()
-        self._emit("PHASE:Align|Aligning timestamps|0")
-        final_segments = segment_words_by_pause(all_words)
-        if raw_speaker_segments is not None:
-            final_segments = dp.process_with_transcription(
-                final_segments, raw_speaker_segments)
-            final_segments = dp.smooth_speaker_boundary_fragments(final_segments)
+        if not final_segments:
+            self._emit("PHASE:Align|Aligning timestamps|0")
+            final_segments = segment_words_by_pause(all_words)
+            if raw_speaker_segments is not None:
+                final_segments = dp.process_with_transcription(
+                    final_segments, raw_speaker_segments)
+                final_segments = dp.smooth_speaker_boundary_fragments(final_segments)
         final_segments = fix_overlapping_segments(final_segments)
         final_segments = split_long_segments(final_segments, max_duration=12.0,
                                              preserve_raw_words=True)
@@ -434,19 +565,19 @@ class TranscriberPipeline:
             "segments": final_segments,
             "timing": {
                 "transcription": timing["transcription"],
-                "restoration": 0.0,
+                "restoration": timing["punctuation"],
                 "total": total,
                 "upload_convert": 0.0,
                 "transcription_detail": timing["transcription"],
                 "sentence_segmentation": 0.0,
-                "punctuation": 0.0,
+                "punctuation": timing["punctuation"],
                 "alignment": timing["alignment"],
                 "diarization": timing.get("diarization", 0.0),
-                "quality": 0.0,
+                "quality": timing["quality"],
                 "load_audio": timing.get("load_audio", 0.0),
                 "vad": timing.get("vad", 0.0),
                 "merge_suspect": timing.get("merge_suspect", 0.0),
-                "quality_overlapped": 0.0,
+                "quality_overlapped": timing.get("quality_overlapped", 0.0),
             },
             "paragraphs": [],
             "has_speaker_diarization": bool(speaker_segments_raw),
@@ -455,7 +586,7 @@ class TranscriberPipeline:
             "speaker_names": {},
             "asr_confidence": (float(np.mean(word_probs))
                                if word_probs else None),
-            "quality_info": None,
+            "quality_info": quality_info,
             "execution_provider": device.type,
             "stage_execution_providers": {},
             "asr_provider_info": {"backend": "torch", "device": str(device)},

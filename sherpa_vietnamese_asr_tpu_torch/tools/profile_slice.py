@@ -3,8 +3,8 @@
 Run from the repository root:
 
     python3 -m sherpa_vietnamese_asr_tpu_torch.tools.profile_slice \
-        [--dtype float32|bfloat16] [--vad] [--diarize] [--seconds 95] \
-        [--long-seconds 600] [--trace trace.json]
+        [--dtype float32|bfloat16] [--vad] [--diarize] [--punctuate] [--quality] \
+        [--seconds 95] [--long-seconds 600] [--trace trace.json]
 
 It builds the random-weight Zipformer-30M model (vocab 2000, beam 8) in the
 given compute dtype; bfloat16 also carries the synthetic hotword table of
@@ -13,7 +13,10 @@ TranscriberPipeline(path, model, {"bypass_vad": True}) -- with --vad the
 default path, TranscriberPipeline(path, model, {}), whose Silero VAD runs on
 the card with random weights; with --diarize also config
 speaker_diarization and a full-width PureDiarizer (random weights) on the
-card -- on a synthetic AM-tone WAV twice to warm up, then once under
+card; with --punctuate config restore_punctuation and a full-width ViBERT
+restorer, with --quality config quality_analysis and DNSMOS (both random
+weights, on the card) -- on a synthetic AM-tone WAV twice to warm up, then
+once under
 torch.profiler, and prints:
   - the request's wall time and the pipeline's own `timing` split;
   - device busy time (the union of the card's kernel and copy intervals),
@@ -299,6 +302,10 @@ def main(argv=None):
                     help="the default path: Silero VAD on (random weights)")
     ap.add_argument("--diarize", action="store_true",
                     help="speaker diarization on (full-width PureDiarizer, random weights)")
+    ap.add_argument("--punctuate", action="store_true",
+                    help="punctuation restoration on (full-width ViBERT, random weights)")
+    ap.add_argument("--quality", action="store_true",
+                    help="DNSMOS quality analysis on (random weights)")
     ap.add_argument("--seconds", type=float, default=95.0)
     ap.add_argument("--long-seconds", type=float, default=600.0)
     ap.add_argument("--top", type=int, default=12)
@@ -321,12 +328,27 @@ def main(argv=None):
     if args.dtype == "bfloat16":
         model.hotword_tables = synthetic_hotword_tables(model.rnnt_cfg.vocab_size, dev)
     config = {} if args.vad else {"bypass_vad": True}
-    diarizer = None
+    stages = {}
     if args.diarize:
         from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import PureDiarizer
 
         config["speaker_diarization"] = True
-        diarizer = PureDiarizer(device=dev)
+        stages["diarizer"] = PureDiarizer(device=dev)
+    if args.punctuate:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.punctuation import (
+            build_punctuation_restorer,
+        )
+
+        config["restore_punctuation"] = True
+        stages["punct_restorer"] = build_punctuation_restorer(device=dev)
+    if args.quality:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.quality import QualityAnalyzer
+
+        config["quality_analysis"] = True
+        stages["quality_analyzer"] = QualityAnalyzer(device=dev)
+
+    def request(p):
+        return TranscriberPipeline(p, model, config=config, **stages).run()
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "request.wav")
@@ -335,7 +357,7 @@ def main(argv=None):
         write_wav(long_path, am_tone(args.long_seconds, 4), SR)
 
         for _ in range(2):
-            TranscriberPipeline(path, model, config=config, diarizer=diarizer).run()
+            request(path)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=_warm_window()) as prof:
@@ -343,26 +365,23 @@ def main(argv=None):
             torch.cuda.synchronize()
             prof.step()
             t0 = time.perf_counter()
-            res = TranscriberPipeline(path, model, config=config, diarizer=diarizer).run()
+            res = request(path)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.step()
 
-        TranscriberPipeline(long_path, model, config=config, diarizer=diarizer).run()
+        request(long_path)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        long_res = TranscriberPipeline(long_path, model, config=config,
-                                       diarizer=diarizer).run()
+        long_res = request(long_path)
         torch.cuda.synchronize()
         long_wall = time.perf_counter() - t0
-        long_busy, long_profiled_ms = _profiled_busy(
-            lambda: TranscriberPipeline(long_path, model, config=config,
-                                        diarizer=diarizer).run())
+        long_busy, long_profiled_ms = _profiled_busy(lambda: request(long_path))
         vad_ms = None
         if args.vad:
             vad_ms = {seconds: vad_device_ms(am_tone(seconds, seed), dev)
                       for seconds, seed in ((args.seconds, 3), (args.long_seconds, 4))}
-        diar_parts = diarization_parts(diarizer, am_tone(args.long_seconds, 4)) \
+        diar_parts = diarization_parts(stages["diarizer"], am_tone(args.long_seconds, 4)) \
             if args.diarize else None
 
     if args.trace:
@@ -409,7 +428,7 @@ def main(argv=None):
                     per_name.items(), key=lambda kv: -kv[1])[:4]))
     if diar_parts:
         print("diarization, one superblock of "
-              f"{diarizer.superblock_windows} windows, device ms by part: " + ", ".join(
+              f"{stages['diarizer'].superblock_windows} windows, device ms by part: " + ", ".join(
                   f"{name} {ms:.3f}" for name, ms in diar_parts.items() if name != "frames")
               + f" (kernel 1 at F {diar_parts['frames']})")
     smi = subprocess.run(
@@ -426,7 +445,8 @@ def main(argv=None):
         "long_device_busy_ms": long_busy,
         "long_idle_share": 1 - long_busy / long_profiled_ms, "vad": args.vad,
         "vad_device_ms": vad_ms and {s: ms for s, (ms, _) in vad_ms.items()},
-        "diarize": args.diarize, "diarization_parts_ms": diar_parts}))
+        "diarize": args.diarize, "diarization_parts_ms": diar_parts,
+        "punctuate": args.punctuate, "quality": args.quality}))
 
 
 if __name__ == "__main__":

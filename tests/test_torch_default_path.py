@@ -235,14 +235,17 @@ def test_cli_writes_the_jax_asr_json(models, same_silero, tmp_path, monkeypatch)
 
 
 def test_cli_refuses_unported_stages_and_needs_a_card(tmp_path):
-    from sherpa_vietnamese_asr_tpu_torch.cli import main
+    """Every stage the CLI offers is ported (--punctuate and --quality since
+    they came to the port: tests/test_torch_punctuate_path.py runs them on
+    the CPU); each one, like the default path, needs a card unless
+    --device cpu is given."""
+    from sherpa_vietnamese_asr_tpu_torch.cli import build_parser, main
 
     wav = _wav(tmp_path, "t.wav")
-    for flag in ("--punctuate", "--quality"):
-        with pytest.raises(NotImplementedError):
-            main(["transcribe", wav, "--device", "cpu", "--allow-random", flag])
+    args = build_parser().parse_args(["transcribe", wav, "--punctuate", "--quality"])
+    assert args.punctuate and args.quality and args.device == "cuda"
     if not torch.cuda.is_available():
-        for extra in ([], ["--diarize"]):
+        for extra in ([], ["--diarize"], ["--punctuate"], ["--quality"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 main(["transcribe", wav, "--allow-random"] + extra)
     assert jax.default_backend() == "cpu"

@@ -7,7 +7,8 @@
 #     configuration derived from the files; a file whose BatchNorms were
 #     folded away by the exporter loads their identity defaults, as the JAX
 #     loader does;
-#   * the numpy k-means gives scikit-learn's partition on separable data;
+#   * the numpy k-means gives scikit-learn's partition on separable data,
+#     and scikit-learn's labels on three overlapping Gaussians;
 #   * SVT_DIAR_INFLIGHT must be a positive integer, mesh must be None.
 # Models agree within 1e-4 (PyanNet log-probs, absolute) and 1e-4 of the
 # reference's largest magnitude (ResNet frame features and embeddings).
@@ -153,6 +154,39 @@ def test_numpy_kmeans_gives_sklearns_partition(k):
     assert got.shape == (len(x),) and set(got.tolist()) == set(range(k))
     assert _same_partition(got, ref)
     assert _same_partition(got, truth)
+
+
+def _overlapping(seed, n, d):
+    """Three unit-variance Gaussians whose centres lie on the unit sphere
+    (about 1.4 apart), L2-normalised as _cluster normalises embeddings."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import l2_norm
+
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((3, d))
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    x = np.concatenate([c + rng.standard_normal((n // 3, d)) for c in centres])
+    return l2_norm(x[rng.permutation(len(x))])
+
+
+@pytest.mark.parametrize("n,d,dtype", [(60, 8, np.float32), (240, 16, np.float64),
+                                        (600, 32, np.float32)])
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_kmeans_gives_sklearns_labels_on_overlapping_clusters(n, d, dtype, k):
+    """KMeans(k, n_init=3, random_state=42) as _cluster's JAX counterpart
+    calls it. With more than 256 rows scikit-learn sums clusters in OpenMP
+    threads whose merge order is not fixed (kmeans' header); one thread
+    gives its deterministic order, which the port reproduces."""
+    from sklearn.cluster import KMeans
+    from threadpoolctl import threadpool_limits
+
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import kmeans
+
+    x = _overlapping(n + d + k, n, d).astype(dtype)
+    got = kmeans(x, k, n_init=3, seed=42)
+    with threadpool_limits(limits=1, user_api="openmp"):
+        ref = KMeans(n_clusters=k, n_init=3, random_state=42).fit_predict(x.copy())
+    assert _same_partition(got, ref)
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("value", ["0", "-2", "three", "1.5", ""])

@@ -175,15 +175,18 @@ def test_port_imports_never_load_jax():
 @pytest.mark.parametrize("config,model_pair", [
     ({"bypass_vad": True, "speaker_diarization": True,
       "speaker_model": "senko_campp"}, False),
-    ({"bypass_vad": True, "restore_punctuation": True}, False),
-    ({"bypass_vad": True, "quality_analysis": True}, False),
+    ({"bypass_vad": True, "speaker_diarization": True, "diarize_overlap_decode": False,
+      "speaker_model": "senko_campp"}, False),
+    ({"bypass_vad": True, "overlap_separation": True, "speaker_diarization": True}, False),
     ({"bypass_vad": True, "overlap_separation": True}, False),
     ({"bypass_vad": True, "speaker_diarization": True,
       "speaker_model": "senko_campp_optimized"}, True),
+    ({"bypass_vad": True, "overlap_separation": True}, True),
 ])
 def test_unported_stages_raise(config, model_pair):
-    """Stages the port does not have yet raise instead of being skipped
-    (diarization is ported; its Senko CAM++ backend is not)."""
+    """Stages the port does not have yet raise instead of being skipped:
+    overlap separation, alone or with a ROVER pair, and the Senko CAM++
+    diarization backend, overlapped with the decode or not."""
     from sherpa_vietnamese_asr_tpu_torch.models.registry import (
         TINY_ZIPFORMER, random_asr_model,
     )
@@ -198,11 +201,16 @@ def test_unported_stages_raise(config, model_pair):
                             config=config)
 
 
-@pytest.mark.parametrize("max_batch", [0, None, -1, "absent", 4])
-def test_max_batch_auto_raises_and_explicit_is_kept(max_batch):
-    """0, None or a negative max_batch asks for the reference's automatic
-    sizing (calibration, not ported): it raises. An absent key gives a
-    decoder of batch 8, a positive value that batch."""
+@pytest.mark.parametrize("max_batch", [0, None, -1, "absent", 4, "report"])
+def test_max_batch_auto_raises_and_explicit_is_kept(max_batch, tmp_path):
+    """0, None or a negative max_batch is automatic, as the JAX package's
+    resolve_max_batch: a calibration report's recommended.max_batch wins,
+    else the memory heuristic, which has no card here and gives 8. An
+    absent key gives a decoder of batch 8, a positive value that batch."""
+    from sherpa_vietnamese_asr_tpu.pipeline.calibration import (
+        resolve_max_batch as jax_resolve,
+    )
+
     from sherpa_vietnamese_asr_tpu_torch.models.registry import (
         TINY_ZIPFORMER, random_asr_model,
     )
@@ -212,15 +220,39 @@ def test_max_batch_auto_raises_and_explicit_is_kept(max_batch):
 
     m = random_asr_model(vocab_size=20, zip_cfg=TINY_ZIPFORMER, beam_size=2,
                          device="cpu")
-    config = {"bypass_vad": True}
-    if max_batch != "absent":
+    config = {"bypass_vad": True,
+              "calibration_report": str(tmp_path / "calibration_report.json")}
+    want = {0: 8, None: 8, -1: 8, "absent": 8, 4: 4, "report": 24}[max_batch]
+    if max_batch == "report":
+        with open(config["calibration_report"], "w", encoding="utf-8") as f:
+            json.dump({"recommended": {"max_batch": 24}}, f)
+        config["max_batch"] = 0
+    elif max_batch != "absent":
         config["max_batch"] = max_batch
-    if max_batch in (0, None, -1):
-        with pytest.raises(NotImplementedError, match="calibration"):
-            TranscriberPipeline("unused.wav", m, config=config)
-        return
     pipe = TranscriberPipeline("unused.wav", m, config=config)
-    assert pipe._decoder().max_batch == (8 if max_batch == "absent" else 4)
+    assert pipe.max_batch == pipe._decoder().max_batch == want
+    assert jax_resolve(config) == want
+
+
+@pytest.mark.parametrize("stage", ["decode", "embedding", "punct", "vibert", "campp",
+                                   "speaker", None])
+def test_auto_batch_size_tiers_match_jax(stage):
+    """Every stage tier of the memory heuristic, at budgets around each
+    floor, as the JAX package's auto_batch_size; no card, no budget."""
+    from sherpa_vietnamese_asr_tpu.pipeline.calibration import auto_batch_size as jax_auto
+
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.calibration import (
+        auto_batch_size,
+        hbm_budget_mb,
+    )
+
+    assert hbm_budget_mb("cpu") is None
+    for default in (4, 8, 32):
+        assert auto_batch_size(stage, default, device="cpu") == default
+        for budget in (None, 0, 1000, 2499, 2500, 2999, 3000, 3499, 3500, 5999, 6000,
+                       6999, 7000, 9999, 10000, 80000):
+            assert auto_batch_size(stage, default, budget_mb=budget) == \
+                jax_auto(stage, default, budget_mb=budget), (default, budget)
 
 
 def test_int16_upload_gives_the_float32_features():
