@@ -81,7 +81,22 @@ Phases (any failure raises and the script exits non-zero):
      --punctuate --quality --diarize` on a directory written by the port's
      exporters, the same request through TranscriberPipeline with DNSMOS
      overlapped and synchronous (equal raw scores); a warm 600 s request
-     with both stages.
+     with both stages;
+ 10. streaming: kernel 1 against its twin at the fused streaming step's
+     shape (8 windows, [8 x 68, 512]); MultiStreamRecognizer(n_streams=8)
+     on the card with the joiner sharpened x 8, 8 streams of 20 s in 0.1 s
+     pieces, three joining late: every step's encoder output within 1e-4
+     of the same class on the CPU, token ids equal to the CPU's and to
+     single-stream recognizers on the card, kernel 1 launched once a step;
+     the background pump equal to the pipelined recognizer; a bfloat16 pass
+     (encoder cosine >= 0.99 against float32); kernels 2, 3 and 4 against
+     their twins at the sessions' batch-1 shapes (14 s and 24 s pads); the
+     fused step's wall, device time, operations, idle share and real-time
+     streams at N 1 and 8; StreamingSession (Silero VAD on the card) and
+     OnlineStreamingSession on 60 s of speech-like audio with silences:
+     finals emitted, at the CPU run's times, each final text equal to the
+     beam twin over the card's encoder output, the CPU run's word
+     differences counted; kernels 1-3 launched by their decodes at batch 1.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks); the last line is
@@ -398,9 +413,10 @@ def check_fbank(dev):
             "replaces": "sherpa_vietnamese_asr_tpu/ops/fbank.py:149", **summary}
 
 
-def attention_inputs(dev, model):
-    """(stack, t, h, lens_list, args) at each ATTN_SHAPES shape: layer 0's
-    own projections of x ~ N(0, 1), batch 8, mixed lens (0 among them)."""
+def attention_inputs(dev, model, shapes=ATTN_SHAPES, lens_of=None):
+    """(stack, t, h, lens_list, args) at each (stack, t, h) shape: layer 0's
+    own projections of x ~ N(0, 1); lens_of(t) gives the batch's lens,
+    by default batch 8 with mixed lens (0 among them)."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.models.zipformer import compact_rel_pos_emb
@@ -408,16 +424,18 @@ def attention_inputs(dev, model):
     gen = torch.Generator(device="cpu").manual_seed(1)
     cfg = model.zip_cfg
     qd, pd = cfg.query_head_dim, cfg.pos_head_dim
-    for stack, t, h in ATTN_SHAPES:
+    for stack, t, h in shapes:
         layer = model.encoder.stacks[stack].layers[0]
-        x = torch.randn((SLICE_BATCH, t, cfg.encoder_dim[stack]), generator=gen).to(dev)
-        lens_list = [t, t // 2, 0, 64, 1, (3 * t) // 4, t, 17]
+        lens_list = (lens_of(t) if lens_of is not None
+                     else [t, t // 2, 0, 64, 1, (3 * t) // 4, t, 17])
+        b = len(lens_list)
+        x = torch.randn((b, t, cfg.encoder_dim[stack]), generator=gen).to(dev)
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         with torch.no_grad():
             proj = layer.attn_in_proj(x)
-        q = proj[..., : h * qd].reshape(SLICE_BATCH, t, h, qd)
-        k = proj[..., h * qd: 2 * h * qd].reshape(SLICE_BATCH, t, h, qd)
-        pq = proj[..., 2 * h * qd:].reshape(SLICE_BATCH, t, h, pd)
+        q = proj[..., : h * qd].reshape(b, t, h, qd)
+        k = proj[..., h * qd: 2 * h * qd].reshape(b, t, h, qd)
+        pq = proj[..., 2 * h * qd:].reshape(b, t, h, pd)
         wpos = layer.attn_pos_proj.weight.detach().t()
         pos = torch.from_numpy(compact_rel_pos_emb(t, cfg.pos_dim)).to(dev)
         yield stack, t, h, lens_list, (q, k, pq, wpos, pos, lens)
@@ -2346,6 +2364,519 @@ def phase_punctuation(dev, model, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+STREAM_SLOTS = 8  # the web service's MultiStreamRecognizer(model, n_streams=8)
+STREAM_SECONDS = 20.0
+STREAM_PIECE = SR // 10  # 0.1 s pieces, as a websocket client sends them
+STREAM_LATE = {5: 20, 6: 40, 7: 60}  # stream -> the tick (0.1 s) it joins at
+# max |card - CPU| of a step's encoder output over the CPU's max |.|: both
+# full float32, the same gate as the port against JAX on the CPU
+# (tests/test_torch_zipformer_streaming.py, where summation order gives ~1e-6).
+STREAM_ENC_GATE = 1e-4
+SESSION_SECONDS = 60.0
+SESSION_PADS = (14.0, 24.0)  # the VAD session's and the online session's decode pads
+# The random Silero head sharpened (weight x 100, bias -2): random weights
+# give 0.5 on every window, these about 0.12 on silence and 0.8-0.9 on
+# speech, so the VAD session starts and ends utterances on the silences.
+VAD_HEAD_SCALE, VAD_HEAD_SHIFT = 100.0, -2.0
+STEP_REPS = 20
+
+
+def stream_audio():
+    """STREAM_SLOTS streams of STREAM_SECONDS of speech-like audio, each
+    with a 1 s silence at its own offset."""
+    rng = np.random.default_rng(21)
+    out = []
+    for i in range(STREAM_SLOTS):
+        x = speechlike(rng, int(STREAM_SECONDS * SR))
+        x[int((3 + 2 * i) * SR): int((4 + 2 * i) * SR)] = 0.0
+        out.append(x)
+    return out
+
+
+def drive_multistream(model, audios):
+    """The websocket endpoint's loop on one MultiStreamRecognizer: streams
+    0-4 open at once, 5-7 join at STREAM_LATE's ticks; each tick every open
+    stream gets its next 0.1 s and every ready slot is stepped. Returns
+    (each stream's token ids, each step's (mask, encoder output) on the host,
+    the steps' host walls in s)."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming_online import MultiStreamRecognizer
+
+    ms = MultiStreamRecognizer(model, n_streams=STREAM_SLOTS)
+    steps, walls, inner = [], [], ms._step
+
+    def recorded(*args):
+        out = inner(*args)
+        steps.append((args[-1].cpu(), out[4].float().cpu()))
+        return out
+
+    ms._step = recorded
+    slots, offsets, tick = {}, {}, 0
+    while True:
+        for i in range(STREAM_SLOTS):
+            if i not in slots and STREAM_LATE.get(i, 0) == tick:
+                slots[i], offsets[i] = ms.open_stream(), 0
+        moved = False
+        for i, s in slots.items():
+            if offsets[i] < len(audios[i]):
+                ms.accept_waveform(s, audios[i][offsets[i]: offsets[i] + STREAM_PIECE])
+                offsets[i] += STREAM_PIECE
+                moved = True
+        while ms.ready_slots():
+            t0 = time.perf_counter()
+            ms.step()  # ends in the tokens' download
+            walls.append(time.perf_counter() - t0)
+        tick += 1
+        if not moved and len(slots) == STREAM_SLOTS and not ms.ready_slots():
+            break
+    tokens = [list(ms.tokens[slots[i]]) for i in range(STREAM_SLOTS)]
+    for i in range(STREAM_SLOTS):
+        assert isinstance(ms.close_stream(slots[i]), str)
+    return tokens, steps, walls
+
+
+def single_stream(model, audio, background=False):
+    """One CachedStreamingRecognizer fed 0.1 s pieces: its token ids."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming_online import (
+        CachedStreamingRecognizer,
+    )
+
+    rec = CachedStreamingRecognizer(model, background=background)
+    try:
+        for i in range(0, len(audio), STREAM_PIECE):
+            rec.accept_waveform(audio[i: i + STREAM_PIECE])
+            while rec.is_ready():
+                rec.decode()
+        return list(rec.tokens)
+    finally:
+        rec.close()
+
+
+def token_differ(a, b):
+    """Token ids of one list unmatched in the other (difflib)."""
+    from sherpa_vietnamese_asr_tpu_torch.tools.batch_drift import word_differ
+
+    return word_differ(list(a), list(b))
+
+
+def check_stream_fbank(dev, audios):
+    """Kernel 1 against its twin at the fused step's shape: 8 windows of
+    10,840 samples (frames 0-67 of a slot, snip_edges=False), one launch of
+    [8 x 68, 512], under phase 3's fbank gate."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming_online import window_samples
+
+    n = window_samples(32, 3)
+    wav = torch.from_numpy(np.stack([a[SR: SR + n] for a in audios])).to(dev)
+    frames = fbank._frame_signal(wav, fbank.ASR_FBANK).reshape(-1, 512).contiguous()
+    got = fbank.logmel(frames, fbank.ASR_FBANK)
+    ref = fbank._logmel_plain(frames, fbank.ASR_FBANK)
+    mean, mx = fbank_errors(got, ref)
+    ms = time_ms(lambda: fbank.logmel(frames, fbank.ASR_FBANK))
+    plain_ms = time_ms(lambda: fbank._logmel_plain(frames, fbank.ASR_FBANK))
+    bnd = fbank_bound(frames.shape[0], fbank.ASR_FBANK, dev)
+    log(f"stream fbank: F {frames.shape[0]} ([{STREAM_SLOTS}, {n}] windows) kernel vs twin "
+        f"mean {mean:.3e} max {mx:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}) ({card()})")
+    assert frames.shape[0] == STREAM_SLOTS * 68, "the step's frame count"
+    assert bool(torch.isfinite(got).all()) and fbank_gate(mean, mx), \
+        "stream fbank: kernel vs twin outside the gate"
+
+
+def session_shapes(cfg, pad_sec):
+    """(stack, T, H) of each distinct attention shape of a batch-1 decode
+    padded to pad_sec seconds (the sessions' BatchedChunkDecoder)."""
+    from sherpa_vietnamese_asr_tpu_torch.utils.fbank_ref import ASR_FBANK, num_frames
+
+    t0 = (num_frames(int(pad_sec * SR), ASR_FBANK) - 7) // 2
+    shapes = {}
+    for stack, ds in enumerate(cfg.downsampling_factor):
+        shapes.setdefault((-(-t0 // ds), cfg.num_heads[stack]), stack)
+    return [(stack, t, h) for (t, h), stack in shapes.items()]
+
+
+def fresh_layer(model, stack):
+    """A new ZipformerLayer holding layer 0 of `stack`'s weights: a layer that
+    has run kernel 4 keeps its checked kernel operands, which deepcopy
+    (perturbed_layer) cannot copy."""
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import ZipformerLayer
+
+    cfg = model.zip_cfg
+    layer = ZipformerLayer(cfg.encoder_dim[stack], cfg.ffn_dim[stack], cfg.num_heads[stack],
+                           cfg.cnn_module_kernel[stack], cfg, device=model.device)
+    layer.load_state_dict(model.encoder.stacks[stack].layers[0].state_dict())
+    return layer.eval()
+
+
+def check_session_shapes(dev, model, model16):
+    """Kernels 2, 3 and 4 against their twins under phase 3's gates at the
+    shapes the sessions give them at batch 1: every distinct stack shape of
+    a 14 s (StreamingSession) and a 24 s (OnlineStreamingSession) decode,
+    5/8 of the frames valid; kernel 3 over the encoder's final frames,
+    beam 8, the session model's joiner; kernel 4 with layer 0 of each
+    stack perturbed (the bf16 tier's sessions)."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import _padded_rev_pos_emb
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention
+    from sherpa_vietnamese_asr_tpu_torch.ops import encoder_layer as el
+
+    cfg = model.zip_cfg
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    failures = []
+    for pad in SESSION_PADS:
+        shapes = session_shapes(cfg, pad)
+        for stack, t, h, lens_list, args in attention_inputs(
+                dev, model, shapes, lambda t: [(5 * t) // 8]):
+            got = attention.attention_weights(*args).float()
+            err, sum_err, rel = attention_gate(got, attention.attention_weights_plain(*args),
+                                               lens_list)
+            log(f"stream attention: {pad:.0f} s pad, stack {stack} B 1 T {t} H {h} lens "
+                f"{lens_list} max_abs {err:.3e} key_sum_err {sum_err:.3e} bf16_bound_ratio "
+                f"{rel:.4f}")
+            if not (err < 2e-2 and sum_err < 2e-2 and rel <= 1.0):
+                failures.append(f"kernel 2 at {pad} s stack {stack} T {t}")
+        for stack, t, h in shapes:
+            layer = perturbed_layer(fresh_layer(model16, stack), gen)
+            tp = -(-t // el.R) * el.R
+            lens_list = [(5 * t) // 8]
+            x = torch.zeros((1, tp, cfg.encoder_dim[stack]))
+            x[:, :t] = torch.randn((1, t, cfg.encoder_dim[stack]), generator=gen)
+            x = x.to(dev)
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            rev = torch.from_numpy(_padded_rev_pos_emb(t, tp, cfg.pos_dim)).to(dev)
+            flat, w_pos = layer.kernel_layout()
+            twin = el.encoder_layer_plain(flat, x, el.poslin_bf16(rev, w_pos, h), lens, h,
+                                          cfg.query_head_dim, cfg.pos_head_dim,
+                                          cfg.value_head_dim)
+            mean, mx, _ = layer_errors(el.encoder_layer(layer, x, rev, lens), twin, lens_list)
+            log(f"stream encoder_layer: {pad:.0f} s pad, stack {stack} B 1 T {t} T_pad {tp} "
+                f"lens {lens_list} max/scale {mx:.3e} mean/scale {mean:.3e}")
+            if not layer_gate(mean, mx):
+                failures.append(f"kernel 4 at {pad} s stack {stack} T {t}")
+        t_out = (shapes[0][1] + 1) // 2
+        enc = torch.randn((1, t_out, cfg.output_dim), generator=gen).to(dev)
+        lens = torch.tensor([(5 * t_out) // 8], dtype=torch.int32, device=dev)
+        _beam_compare(f"{pad:.0f} s pad B 1 T {t_out} lens {lens.tolist()}",
+                      *_beam_pair(enc, lens, model.decoder, model.joiner, model.rnnt_cfg))
+    assert not failures, "session shapes: " + "; ".join(failures)
+
+
+def check_multistream(dev, model, cpu_model, audios):
+    """MultiStreamRecognizer(n_streams=8) on the card against the same class
+    on the CPU (every step's encoder output within STREAM_ENC_GATE, token
+    ids equal), and against single-stream recognizers on the card; the
+    pipelined and the background recognizer equal. Returns (the kernel
+    launches of the card run, its steps)."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    tokens, steps, walls = drive_multistream(model, audios)
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    log(f"stream multi card: {len(steps)} steps in {wall:.3f} s, step wall median "
+        f"{np.median(walls) * 1e3:.3f} ms max {max(walls) * 1e3:.3f} ms, launches {launches}, "
+        f"tokens a stream {[len(t) for t in tokens]} ({card()})")
+    assert launches["fbank_logmel"] == len(steps), "kernel 1 not launched once a step"
+    assert all(tokens), "a stream emitted nothing"
+    t0 = time.perf_counter()
+    cpu_tokens, cpu_steps, _ = drive_multistream(cpu_model, audios)
+    errs = []
+    for (mask, enc), (cmask, cenc) in zip(steps, cpu_steps, strict=True):
+        assert bool((mask == cmask).all()), "card and CPU stepped other slots"
+        errs.append(float((enc - cenc).abs().max() / cenc.abs().max()))
+    differ = [token_differ(a, b) for a, b in zip(tokens, cpu_tokens)]
+    log(f"stream multi card vs CPU ({time.perf_counter() - t0:.1f} s on the CPU): encoder "
+        f"output max |d| over max, per step: max {max(errs):.3e} median "
+        f"{np.median(errs):.3e} (gate {STREAM_ENC_GATE}); token ids differing a stream "
+        f"{differ} of {[len(t) for t in cpu_tokens]}")
+    assert max(errs) <= STREAM_ENC_GATE, "stream: card encoder output vs CPU outside the gate"
+    assert not any(differ), "stream: card and CPU token ids differ"
+    singles = [single_stream(model, a) for a in audios]
+    differ = [token_differ(a, b) for a, b in zip(tokens, singles)]
+    background = single_stream(model, audios[0], background=True)
+    log(f"stream single vs multi on the card: token ids differing a stream {differ}; "
+        f"background vs pipelined {token_differ(background, singles[0])} of {len(singles[0])}")
+    assert not any(differ), "stream: multi-stream differs from single-stream"
+    assert background == singles[0], "stream: background pump differs from pipelined"
+    return launches, steps
+
+
+def check_multistream_bf16(model16, audios, steps32):
+    """The bf16 encoder in the same schedule: each advanced slot's encoder
+    output at cosine >= COSINE_GATE against the float32 one."""
+    _, steps16, _ = drive_multistream(model16, audios)
+    cos = []
+    for (mask, enc16), (_, enc32) in zip(steps16, steps32, strict=True):
+        for s in np.flatnonzero(mask.numpy()):
+            a, b = enc16[s].flatten().double(), enc32[s].flatten().double()
+            cos.append(float(a @ b / (a.norm() * b.norm())))
+    log(f"stream bf16 vs float32 encoder output: cosine min {min(cos):.5f} median "
+        f"{np.median(cos):.5f} over {len(cos)} slot-steps (gate {COSINE_GATE})")
+    assert min(cos) >= COSINE_GATE, "stream bf16: encoder cosine under the gate"
+
+
+def step_numbers(dev, model, n):
+    """The fused step at N slots, all ready: warm wall (host clock ending in
+    a synchronise), device busy time and operations a step from
+    torch.profiler, idle share and the streams it sustains in real time."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer_streaming import (
+        StreamingConfig, init_streaming_state,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming_online import (
+        fused_stream_step, window_samples,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
+
+    scfg = StreamingConfig()
+    rng = np.random.default_rng(5)
+    state = init_streaming_state(model.zip_cfg, scfg, n, dev)
+    ctx = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    wav = torch.from_numpy(np.stack([speechlike(rng, window_samples(32, 3))
+                                     for _ in range(n)])).to(dev)
+    f0s = torch.full((n,), 3, dtype=torch.int64, device=dev)
+    mask = torch.ones((n,), dtype=torch.bool, device=dev)
+
+    def fn():
+        return fused_stream_step(model, scfg, state, ctx, wav, f0s, mask)
+
+    for _ in range(3):
+        fn()
+    walls = []
+    for _ in range(STEP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    busy, per_name, counts = profile_calls(fn, reps=10)
+    ops = sum(counts.values()) / 10
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"stream step N {n} ({model.zip_cfg.compute_dtype}): wall median {wall:.3f} ms "
+        f"(min {min(walls):.3f}), device busy {busy:.4f} ms, {ops:.0f} device operations a "
+        f"step, idle share {1 - busy / wall:.3f}, real-time streams {n * 0.64e3 / wall:.1f}; "
+        f"top: " + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top) + f" ({card()})")
+    return {"n": n, "wall_ms": wall, "busy_ms": busy, "ops": ops}
+
+
+def session_audio():
+    """SESSION_SECONDS of speech-like audio with silences of 0.8 to 3.5 s;
+    14 s of speech between 16 s and 30 s (longer than the VAD session's
+    12 s maximum)."""
+    rng = np.random.default_rng(31)
+    x = speechlike(rng, int(SESSION_SECONDS * SR))
+    for start, length in ((6.0, 1.5), (14.5, 1.5), (30.0, 2.0), (40.0, 3.5), (52.0, 0.8)):
+        x[int(start * SR): int((start + length) * SR)] = 0.0
+    return x
+
+
+def vad_pair(dev):
+    """The session's Silero VAD on the card (random_silero_vad seed 0, head
+    sharpened) and its CPU copy."""
+    import copy
+
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.silero_vad import random_silero_vad
+
+    vad = random_silero_vad(seed=0, device=dev)
+    with torch.no_grad():
+        vad.head.weight.mul_(VAD_HEAD_SCALE)
+        vad.head.bias.add_(VAD_HEAD_SHIFT)
+    return vad, copy.deepcopy(vad).to("cpu")
+
+
+def vad_session(model, vad, audio, queue_depth):
+    """StreamingSession over 50 ms chunks with a clock of 50 ms a chunk.
+    Returns (callbacks, each decode's host wall in s (a decode ends in the
+    words' download), the audio decoded for each final)."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming import StreamingSession
+
+    clock = [0.0]
+    events, walls, windows = [], [], []
+    sess = StreamingSession(model, lambda t, f, ts: events.append((t, f, ts)), vad=vad,
+                            clock=lambda: clock[0])
+    decode, final_text = sess._decode_utterance, sess._final_text
+
+    def timed(audio_):
+        t0 = time.perf_counter()
+        text = decode(audio_)
+        walls.append(time.perf_counter() - t0)
+        return text
+
+    def recorded():
+        windows.append(np.concatenate(
+            [sess.utterance, np.zeros(int(sess.TAIL_PAD_SEC * SR), np.float32)]))
+        return final_text()
+
+    sess._decode_utterance, sess._final_text = timed, recorded
+    for i in range(0, len(audio), 800):
+        clock[0] += 0.05
+        sess.push_chunk(audio[i: i + 800], queue_depth=queue_depth)
+    sess.finalize()
+    return events, walls, windows
+
+
+def online_session(model, audio):
+    """OnlineStreamingSession over 0.1 s pieces. Returns (callbacks, each
+    decode's host wall in s, (window, text) at each utterance end)."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming_online import OnlineStreamingSession
+
+    events, walls, ends = [], [], []
+    sess = OnlineStreamingSession(model, lambda t, f, ts: events.append((t, f, ts)))
+    rec_decode, finalize = sess.rec.decode, sess._finalize
+
+    def timed():
+        t0 = time.perf_counter()
+        rec_decode()
+        walls.append(time.perf_counter() - t0)
+
+    def recorded():
+        ends.append((sess.rec.buffer.copy(), sess.rec.get_result()))
+        finalize()
+
+    sess.rec.decode, sess._finalize = timed, recorded
+    for i in range(0, len(audio), STREAM_PIECE):
+        sess.push_chunk(audio[i: i + STREAM_PIECE])
+    sess.finalize()
+    return events, walls, ends
+
+
+def text_of(words):
+    return " ".join(w["text"] for w in words).strip().lower()
+
+
+def twin_text(model, cpu_model, window, pad_sec):
+    """The window's text from the card's fbank and encoder (kernels 1 and 2)
+    with the beam search's plain twin on the host CPU over their output."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops.beam_search_cuda import beam_search_batch_cuda
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder, fbank_batch
+
+    dec = BatchedChunkDecoder(model, max_batch=1, chunk_pad_sec=pad_sec)
+    span = [(0, len(window))]
+    audio, lens = dec._build_batch(window, span)
+    n_frames = torch.from_numpy((lens + 80) // 160).to(model.device)
+    with torch.no_grad():
+        enc, enc_lens = model.encoder(fbank_batch(torch.from_numpy(audio).to(model.device)),
+                                      n_frames)
+        enc, enc_lens = enc.cpu(), enc_lens.cpu()
+        res = beam_search_batch_cuda(enc, enc_lens, cpu_model.decoder, cpu_model.joiner,
+                                     cpu_model.rnnt_cfg, beam_size=model.beam_size)
+    return text_of(dec._words_from_result(res, enc_lens, span, cpu_model)[0])
+
+
+def final_differ(texts, ref_texts):
+    """Words of each final text unmatched in the reference's (difflib)."""
+    return [token_differ(a.split(), b.split()) for a, b in zip(texts, ref_texts, strict=True)]
+
+
+def check_sessions(dev, model, cpu_model):
+    """StreamingSession (VAD on the card) and OnlineStreamingSession on
+    SESSION_SECONDS, each held to the CPU in two ways:
+      - the VAD session again wholly on the CPU, with more than 10 chunks
+        queued (which skips only its partial decodes): the same finals at
+        the same times; the online session's windows at each utterance end
+        decoded again on the CPU;
+      - each final text equal to the beam search's plain twin on the host
+        over the card's encoder output of the same window.
+    The full CPU decodes' word differences are counted, not gated: the fp32
+    encoder's output on the card (kernel 2's bf16 weights, float32
+    position scores) is 2e-4 to 7e-4 of its max from the CPU's, with the
+    CPU's kernel 2 numerics too, and that flips near-tied beam steps of
+    random weights (kernel 3 and its twin agree on either encoder output,
+    PERF.md). Returns the card's launches."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder
+
+    audio = session_audio()
+    vad, cpu_vad = vad_pair(dev)
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    events, walls, windows = vad_session(model, vad, audio, 0)
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    finals = [e for e in events if e[1]]
+    texts = [e[0] for e in finals]
+    partials = len(events) - len(finals)
+    t0 = time.perf_counter()
+    cpu_events, _, _ = vad_session(cpu_model, cpu_vad, audio, 11)
+    cpu_wall = time.perf_counter() - t0
+    twin = final_differ(texts, [twin_text(model, cpu_model, w, 14.0) for w in windows])
+    host = final_differ(texts, [e[0] for e in cpu_events])
+    log(f"stream VAD session: {SESSION_SECONDS:.0f} s in {wall:.3f} s wall, {partials} "
+        f"partials, {len(finals)} finals at {[round(e[2], 2) for e in finals]} s, decode "
+        f"wall median {np.median(walls) * 1e3:.3f} ms max {max(walls) * 1e3:.3f} ms over "
+        f"{len(walls)} (14 s padded, B 1); words differing a final: {twin} from the beam "
+        f"twin over the card's encoder output, {host} from the CPU run ({cpu_wall:.1f} s, "
+        f"finals at {[round(e[2], 2) for e in cpu_events]} s) of "
+        f"{[len(t.split()) for t in texts]} ({card()})")
+    assert finals and partials, "VAD session: no finals or no partials"
+    assert [e[1:] for e in finals] == [e[1:] for e in cpu_events], \
+        "VAD session: the card's finals come at other times than the CPU's"
+    assert not any(twin), "VAD session: a final differs from the twin over the card's encoder"
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    events, walls, ends = online_session(model, audio)
+    wall = time.perf_counter() - t0
+    for key, mod in (("fbank_logmel", fbank), ("attention_weights", attention),
+                     ("beam_search", beam_search_cuda)):
+        launches[key] += mod.launches
+    finals = [e for e in events if e[1]]
+    texts = [text for _, text in ends]
+    twin = final_differ(texts, [twin_text(model, cpu_model, w, 24.0) for w, _ in ends])
+    cpu_dec = BatchedChunkDecoder(cpu_model, max_batch=1, chunk_pad_sec=24.0)
+    host = final_differ(texts, [text_of(cpu_dec.decode_spans(w, [(0, len(w))])[0])
+                                for w, _ in ends])
+    log(f"stream online session: {SESSION_SECONDS:.0f} s in {wall:.3f} s wall, "
+        f"{len(events) - len(finals)} partials, {len(finals)} finals at "
+        f"{[round(e[2], 2) for e in finals]} s, decode wall median "
+        f"{np.median(walls) * 1e3:.3f} ms max {max(walls) * 1e3:.3f} ms over {len(walls)} "
+        f"(24 s padded, B 1); words differing at each utterance end: {twin} from the beam "
+        f"twin over the card's encoder output, {host} from the CPU's decode of the same "
+        f"window, of {[len(t.split()) for t in texts]} ({card()})")
+    assert finals, "online session: no finals"
+    assert not any(twin), "online session: a final differs from the twin over the card's encoder"
+    log(f"stream sessions launches: {launches}")
+    assert all(n > 0 for n in launches.values()), "a kernel never ran in the sessions"
+    return launches
+
+
+def phase_streaming(dev, model, model16):
+    """Live streaming on the card: kernel 1 at the fused step's shape,
+    MultiStreamRecognizer(n_streams=8) against the CPU and against single
+    streams, the background pump, a bf16 pass, the step's numbers at N 1
+    and 8, and the two live sessions against the CPU."""
+    import copy
+
+    t0 = time.perf_counter()
+    sharp = sharp_copy(model)
+    cpu_model = copy.deepcopy(sharp).to("cpu")
+    audios = stream_audio()
+    check_stream_fbank(dev, audios)
+    launches, steps = check_multistream(dev, sharp, cpu_model, audios)
+    check_multistream_bf16(model16, audios, steps)
+    check_session_shapes(dev, sharp, model16)
+    for n in (1, STREAM_SLOTS):
+        step_numbers(dev, sharp, n)
+    session_launches = check_sessions(dev, sharp, cpu_model)
+    log(f"stream phase {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + session_launches[k] for k in launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -2401,8 +2932,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         launches_punct = phase_punctuation(dev, model, tmp)
     log("PHASE punctuation and quality ok")
+    launches_stream = phase_streaming(dev, model, model16)
+    log("PHASE streaming ok")
     paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
-             launches_punct)
+             launches_punct, launches_stream)
     for k in kernels:  # each kernel's count from the first path that runs it
         k["route"] = "cuda"
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)

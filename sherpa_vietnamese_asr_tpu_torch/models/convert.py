@@ -9,7 +9,9 @@
 # models/resnet_speaker.ResNetSpeaker, the ViBERT tree, float32 or int8, into
 # models/vibert.ViBert and the DNSMOS tree into models/dnsmos.Dnsmos) with
 # every layout change done here, so the same weights run through both
-# packages.
+# packages. A streaming Zipformer state of the JAX package converts too
+# (streaming_state_from_numpy), so both packages can go on from one
+# mid-stream state.
 
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from sherpa_vietnamese_asr_tpu_torch.models.rnnt import RnntConfig
 from sherpa_vietnamese_asr_tpu_torch.models.silero_vad import SileroVad, SileroVadConfig
 from sherpa_vietnamese_asr_tpu_torch.models.vibert import ViBert, ViBertConfig
 from sherpa_vietnamese_asr_tpu_torch.models.zipformer import ZipformerConfig
+from sherpa_vietnamese_asr_tpu_torch.models.zipformer_streaming import LAYER_CACHES
 
 
 def _linear(out, prefix, p):
@@ -140,6 +143,28 @@ def asr_model_from_numpy(enc, dec, joi, zip_cfg: ZipformerConfig,
     _load(model.decoder, decoder_state_dict(dec))
     _load(model.joiner, joiner_state_dict(joi))
     return model.to(device)
+
+
+def streaming_state_from_numpy(state, zip_cfg: ZipformerConfig, device="cuda") -> dict:
+    """A JAX init_streaming_state / streaming_step state (numpy leaves) ->
+    the state of models/zipformer_streaming.streaming_step on `device`, the
+    card by default (raises without one). The ConvNeXt tail goes from the
+    JAX package's NHWC [B, 6, F', C3] to [B, C3, 6, F']; every other
+    tensor keeps its layout."""
+    device = model_device(device)
+    stacks = state["stacks"]
+    if [len(s) for s in stacks] != list(zip_cfg.num_encoder_layers):
+        raise ValueError(f"state has {[len(s) for s in stacks]} layers a stack, "
+                         f"the config {list(zip_cfg.num_encoder_layers)}")
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+    keys = LAYER_CACHES + ("conv1_tail", "conv2_tail")
+    return {"fbank_tail": tensor(state["fbank_tail"]),
+            "convnext_tail": tensor(np.asarray(state["convnext_tail"]).transpose(0, 3, 1, 2)),
+            "stacks": [[{k: tensor(layer[k]) for k in keys} for layer in stack]
+                       for stack in stacks]}
 
 
 def silero_from_numpy(state, cfg: SileroVadConfig, device="cuda") -> SileroVad:

@@ -37,13 +37,18 @@ class Decoder(nn.Module):
             torch.empty(d, 4, cfg.context_size, device=device))
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        """y: [..., context_size] int token ids (>= 0) -> [..., decoder_dim]."""
+        """y: [..., context_size] int token ids (>= 0) -> [..., decoder_dim].
+
+        The grouped convolution over exactly context_size positions is one
+        grouped product, the JAX package's formulation: on CUDA, cuDNN runs
+        a grouped conv1d of more than one row as a kernel a group (128)."""
         emb = self.embedding[y]  # [..., K, D]
-        lead = emb.shape[:-2]
-        x = emb.reshape(-1, *emb.shape[-2:]).transpose(1, 2)  # [N, D, K]
-        groups = self.conv_weight.shape[0] // self.conv_weight.shape[1]
-        out = torch.nn.functional.conv1d(x, self.conv_weight, groups=groups)
-        return torch.relu(out[..., 0]).reshape(*lead, -1)
+        d, in_per_g, k = self.conv_weight.shape
+        groups = d // in_per_g
+        emb_g = emb.reshape(*emb.shape[:-1], groups, in_per_g)      # [..., K, G, I]
+        w_g = self.conv_weight.reshape(groups, d // groups, in_per_g, k)
+        out = torch.einsum("...kgi,goik->...go", emb_g, w_g)
+        return torch.relu(out.reshape(*emb.shape[:-2], d))
 
 
 class Joiner(nn.Module):
