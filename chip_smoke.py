@@ -97,10 +97,24 @@ Phases (any failure raises and the script exits non-zero):
      finals emitted, at the CPU run's times, each final text equal to the
      beam twin over the card's encoder output, the CPU run's word
      differences counted; kernels 1-3 launched by their decodes at batch 1.
+ 11. Senko diarization and overlap separation: a full-width PyanNet, CAM++
+     and Conv-TasNet (random, one torch.Generator seeded 0; the CAM++
+     embedding BatchNorm centred on two-tone windows) on the card; CAM++ on
+     a block of 128 windows against its CPU twin (cosine >= 0.99999) and
+     Conv-TasNet on 10 s (within 1e-4 of max |source|), each refusing to run
+     with TF32 on; SenkoCamppDiarizer on 100 s with the CPU twin's segments;
+     kernel 1 at CAMPP_FBANK on a 600 s request's speech regions against its
+     twin; a 600 s TranscriberPipeline request with the Senko facade and a
+     warm 600 s process (wall, device busy, idle share, kernel 1 once a
+     region); the UMAP + HDBSCAN route on 1,260 s with the native
+     clusterkit; one _run_overlap_separation on planted 2-speaker segments
+     and regions, each stream re-decoded through kernels 1-3; a 100 s
+     request with Senko diarization and overlap_separation.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
-run's shapes and the card's published peaks); the last line is
-{"ok": true, "device": {...}}.
+run's shapes and the card's published peaks), kernel 1 also at the Senko
+(CAMPP_FBANK on the speech regions) and overlap paths' shapes with their
+own launches; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py [--parent DIR]
 """
@@ -2877,6 +2891,422 @@ def phase_streaming(dev, model, model16):
     return {k: launches[k] + session_launches[k] for k in launches}
 
 
+# ---------------------------------------------------------------- phase 11
+
+SENKO_SECONDS = 100
+SENKO_LONG_SECONDS = 600
+SENKO_UMAP_SECONDS = 1260  # over 20 min: the UMAP + HDBSCAN route
+CAMPP_BLOCK_WINDOWS = 128
+CAMPP_COSINE = 0.99999  # each window's embedding, card vs CPU
+SEP_SECONDS = 10
+SEP_GATE = 1e-4  # max |card - CPU| of the separated sources over the CPU's max |source|
+
+
+def senko_models(dev):
+    """A full-width PyanNet (classifier bias shifted by DIAR_SPEAKER_BIAS),
+    CAM++ and Conv-TasNet, random from one torch.Generator seeded 0, on the
+    card, and CPU twins with the same weights. The CAM++ embedding BatchNorm
+    is centred on the raw embeddings of diarization_audio(40)'s windows
+    (tests/test_torch_senko.py), so that the random model tells the two
+    tones apart."""
+    import copy
+
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.campplus import random_campp
+    from sherpa_vietnamese_asr_tpu_torch.models.convtasnet import random_convtasnet
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import random_pyannet
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+
+    gen = torch.Generator().manual_seed(0)
+    seg = random_pyannet(device=dev, generator=gen)
+    campp = random_campp(device=dev, generator=gen)
+    ct = random_convtasnet(device=dev, generator=gen)
+    with torch.no_grad():
+        seg.classifier.bias.add_(torch.tensor(DIAR_SPEAKER_BIAS, device=dev))
+        bn = campp.xvector.dense.nonlinear.batchnorm
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+        fb = fbank.compute_fbank(torch.from_numpy(diarization_audio(40)).to(dev),
+                                 fbank.CAMPP_FBANK)
+        raw = campp(torch.stack([fb[s: s + 150] for s in range(0, fb.shape[0] - 150, 60)]))
+        bn.running_mean.copy_(raw.mean(0))
+        bn.running_var.copy_(raw.var(0, unbiased=False) + 1e-3)
+    return (seg, campp, ct), tuple(copy.deepcopy(m).to("cpu") for m in (seg, campp, ct))
+
+
+def refuses_tf32(fn):
+    """fn() raises while cuDNN's TF32 is on; the flag is put back off."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import use_full_fp32
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        fn()
+    except RuntimeError as e:
+        return "TF32" in str(e)
+    finally:
+        use_full_fp32()
+    return False
+
+
+def campp_flops(cfg, frames):
+    """Operations (2 per multiply-add) of CAM++ on one [frames, num_mels]
+    window: the FCM convolutions, the TDNN, the dense layers' products
+    (the CAM gate once a segment) and the transitions."""
+    f, t = cfg.num_mels, frames
+    mc = cfg.m_channels
+    total = 2 * 9 * mc * f * t                       # head.conv1
+    for _ in range(2):                               # layer1, layer2
+        f = (f - 1) // 2 + 1
+        total += 2 * (9 * mc * mc * f * t) * 4 + 2 * mc * mc * f * t
+    f = (f - 1) // 2 + 1
+    total += 2 * 9 * mc * mc * f * t                 # head.conv2
+    t2 = (t - 1) // 2 + 1
+    total += 2 * 5 * mc * f * cfg.init_channels * t2  # TDNN
+    c, bn = cfg.init_channels, cfg.bottleneck
+    for n_layers in cfg.block_layers:
+        for _ in range(n_layers):
+            total += 2 * c * bn * t2 + 2 * cfg.kernel * bn * cfg.growth_rate * t2
+            c += cfg.growth_rate
+        total += 2 * c * (c // 2) * t2
+        c //= 2
+    return total
+
+
+def check_campp_block(dev, card_model, cpu_model):
+    """CAM++ on one block of CAMPP_BLOCK_WINDOWS 1.5 s windows gathered from
+    a [6144, 80] region fbank (campp_window_block), card against the CPU
+    twin: every window's cosine >= CAMPP_COSINE; the block's time and device
+    time, its operations' rate; the forward refuses to run with TF32 on."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_senko import campp_window_block
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
+
+    audio = speechlike(np.random.default_rng(11), 62 * SR)
+    feat = fbank.compute_fbank(torch.from_numpy(audio).to(dev), fbank.CAMPP_FBANK)[:6144]
+    starts = torch.linspace(0, feat.shape[0] - 150, CAMPP_BLOCK_WINDOWS).long().to(dev)
+    lens = torch.full_like(starts, 150)
+    lens[-1] = 97  # one ragged window, zero-padded after its end
+    with torch.no_grad():
+        got = campp_window_block(card_model, feat, starts, lens, 150).cpu().double()
+        ref = campp_window_block(cpu_model, feat.cpu(), starts.cpu(), lens.cpu(), 150).double()
+    cos = (got * ref).sum(1) / (got.norm(dim=1) * ref.norm(dim=1))
+    err = float((got - ref).abs().max() / ref.abs().max())
+    ms = time_ms(lambda: campp_window_block(card_model, feat, starts, lens, 150), reps=5)
+    busy, per_name, counts = profile_calls(
+        lambda: campp_window_block(card_model, feat, starts, lens, 150), reps=3)
+    flops = campp_flops(card_model.cfg, 150) * CAMPP_BLOCK_WINDOWS
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"senko CAM++ block {CAMPP_BLOCK_WINDOWS} x 150 frames: card vs CPU cosine min "
+        f"{float(cos.min()):.7f}, max |error| / max |CPU| {err:.2e}; {ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, {sum(counts.values()) / 3:.0f} device kernels a block, "
+        f"{flops / 1e9:.1f} GFLOP at {flops / (busy * 1e-3) / 1e12:.2f} TFLOP/s (float32 "
+        f"bound {flops / PEAK_FP32 * 1e3:.3f} ms); top kernels "
+        + ", ".join(f"{k[:50]} {v:.3f}" for k, v in top) + f" ({card()})")
+    assert float(cos.min()) >= CAMPP_COSINE, "CAM++ block: card vs CPU below the cosine gate"
+    assert refuses_tf32(lambda: card_model(feat[None, :150])), "CAM++ ran with TF32 on"
+    return {"ms": ms, "busy": busy}
+
+
+def check_separation(dev, card_model, cpu_model):
+    """Conv-TasNet on SEP_SECONDS of two mixed sources, card against the CPU
+    twin within SEP_GATE; its time, device time and kernels a call; the
+    forward refuses to run with TF32 on."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
+
+    rng = np.random.default_rng(12)
+    mix = speechlike(rng, SEP_SECONDS * SR) + 0.5 * speechlike(rng, SEP_SECONDS * SR)[::-1]
+    x = torch.from_numpy(np.ascontiguousarray(mix, np.float32))[None]
+    got = card_model(x.to(dev)).cpu()
+    ref = cpu_model(x)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    ms = time_ms(lambda: card_model(x.to(dev)), reps=5)
+    busy, per_name, counts = profile_calls(lambda: card_model(x.to(dev)), reps=3)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"overlap Conv-TasNet {SEP_SECONDS} s: card vs CPU max |error| / max |CPU| {err:.2e}; "
+        f"{ms:.3f} ms, device busy {busy:.3f} ms, {sum(counts.values()) / 3:.0f} device kernels "
+        "a call; top kernels " + ", ".join(f"{k[:50]} {v:.3f}" for k, v in top) + f" ({card()})")
+    assert got.shape == ref.shape == (1, 2, SEP_SECONDS * SR)
+    assert err <= SEP_GATE, "Conv-TasNet: card vs CPU outside the gate"
+    assert refuses_tf32(lambda: card_model(x.to(dev))), "Conv-TasNet ran with TF32 on"
+    return {"ms": ms, "busy": busy}
+
+
+def same_segments(got, ref):
+    return len(got) == len(ref) and all(
+        g["speaker"] == r["speaker"] and abs(g["start"] - r["start"]) <= 1e-6
+        and abs(g["end"] - r["end"]) <= 1e-6 for g, r in zip(got, ref))
+
+
+def check_campp_fbank(dev, diar, audio):
+    """Kernel 1 at CAMPP_FBANK on the speech regions of `audio` as the Senko
+    VAD finds them: each region's frames against the twin under phase 3's
+    gate; the kernel and the twin over all regions, one launch a region,
+    against the bound of all their frames."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+
+    cfg = fbank.CAMPP_FBANK
+    x = torch.from_numpy(audio).to(dev)
+    frames = []
+    for rs, re_ in diar._pyannote_vad(audio):
+        s0, e0 = int(rs * SR), min(int(re_ * SR), len(audio))
+        if e0 - s0 >= 400 and fbank.num_frames(e0 - s0, cfg) >= 10:
+            frames.append(fbank._frame_signal(x[s0:e0], cfg).reshape(-1, cfg.n_fft).contiguous())
+    worst = (0.0, 0.0)
+    for fr in frames:
+        mean, mx = fbank_errors(fbank.logmel(fr, cfg), fbank._logmel_plain(fr, cfg))
+        worst = (max(worst[0], mean), max(worst[1], mx))
+    n = sum(fr.shape[0] for fr in frames)
+    ms = time_ms(lambda: [fbank.logmel(fr, cfg) for fr in frames])
+    plain_ms = time_ms(lambda: [fbank._logmel_plain(fr, cfg) for fr in frames])
+    b = fbank_bound(n, cfg, dev)
+    log(f"senko kernel 1 at CAMPP_FBANK: {len(frames)} regions, F {n} (largest "
+        f"{max(fr.shape[0] for fr in frames)}), vs twin worst mean {worst[0]:.3e} max "
+        f"{worst[1]:.3e}; kernel {ms:.4f} ms over the regions, twin {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({card()})")
+    assert fbank_gate(*worst), "kernel 1 at CAMPP_FBANK outside the gate"
+    return {"name": "fbank_logmel_campp", "route": "cuda",
+            "source": "sherpa_vietnamese_asr_tpu_torch/csrc/fbank_logmel.cu",
+            "replaces": "sherpa_vietnamese_asr_tpu/ops/fbank.py:149", "max_abs_err": worst[1],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+
+
+def senko_requests(dev, model, card_models, cpu_models, tmp):
+    """Senko diarization on the card: (a) 100 s, the card's segments equal
+    to the CPU twin's; (b) a 600 s TranscriberPipeline request with the
+    Senko facade (the launch counts zeroed just before, read just after),
+    and a warm SenkoCamppDiarizer.process alone: wall, device busy, idle
+    share, kernel 1 once a speech region; (c) the over-20-min route
+    (UMAP + HDBSCAN) on 1,260 s with the native clusterkit loaded."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization import SpeakerDiarizer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_senko import SenkoCamppDiarizer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import _profiled_busy
+    from sherpa_vietnamese_asr_tpu_torch.utils import native
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+
+    card_diar = SenkoCamppDiarizer(seg_model=card_models[0], campp_model=card_models[1],
+                                   device=dev)
+    cpu_diar = SenkoCamppDiarizer(seg_model=cpu_models[0], campp_model=cpu_models[1],
+                                  device="cpu")
+    audio = diarization_audio(SENKO_SECONDS)
+    t0 = time.perf_counter()
+    got = card_diar.process(audio)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = cpu_diar.process(audio)
+    t_cpu = time.perf_counter() - t0
+    log(f"senko {SENKO_SECONDS} s: card {len(got)} segments, {len({s['speaker'] for s in got})} "
+        f"speakers in {t_card:.3f} s (cold), CPU twin {len(ref)} segments in {t_cpu:.3f} s; "
+        f"equal: {same_segments(got, ref)}")
+    assert same_segments(got, ref), "senko 100 s: card segments differ from the CPU twin's"
+
+    long_audio = diarization_audio(SENKO_LONG_SECONDS)
+    kernel1 = check_campp_fbank(dev, card_diar, long_audio)
+    path = os.path.join(tmp, "senko600.wav")
+    write_wav(path, long_audio, SR)
+    facade = SpeakerDiarizer("senko_campp")
+    facade._backend = card_diar
+    config = {"bypass_vad": True, "speaker_diarization": True, "speaker_model": "senko_campp"}
+    TranscriberPipeline(path, model, config, diarizer=facade).run()  # warm
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    res = TranscriberPipeline(path, model, config, diarizer=facade).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    log(f"senko {SENKO_LONG_SECONDS} s request (random Zipformer-30M, Senko in the "
+        f"background): wall {wall:.3f} s, timing diarization {res['timing']['diarization']:.3f} "
+        f"s transcription {res['timing']['transcription']:.3f} s, "
+        f"{len(res['speaker_segments_raw'])} speaker segments, launches {launches} ({card()})")
+    assert res["has_speaker_diarization"] and all(n > 0 for n in launches.values())
+
+    fbank.launches = 0
+    t0 = time.perf_counter()
+    segments = card_diar.process(long_audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernel1["launches"] = fbank.launches
+    n_regions = len(card_diar._pyannote_vad(long_audio))
+    busy, profiled = _profiled_busy(lambda: card_diar.process(long_audio))
+    log(f"senko {SENKO_LONG_SECONDS} s process: warm wall {wall:.3f} s, {len(segments)} "
+        f"segments, {n_regions} speech regions, kernel 1 launches {kernel1['launches']}; under "
+        f"the profiler wall {profiled:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / profiled:.3f} ({card()})")
+    assert segments and 0 < kernel1["launches"] <= n_regions
+
+    umap_audio = diarization_audio(SENKO_UMAP_SECONDS)
+    assert native.get_clusterkit() is not None, "the native clusterkit did not build"
+    t0 = time.perf_counter()
+    segments = card_diar.process(umap_audio)
+    wall = time.perf_counter() - t0
+    log(f"senko {SENKO_UMAP_SECONDS} s process (UMAP + HDBSCAN on {native.library_path()}): "
+        f"wall {wall:.3f} s, {len(segments)} segments, "
+        f"{len({s['speaker'] for s in segments})} speakers ({card()})")
+    assert segments, "senko 1260 s: no segments"
+    return kernel1, launches, got
+
+
+def overlap_audio(seconds=24):
+    """Speaker 0 an AM tone at 220 Hz, speaker 1 800 Hz with 1 kHz, both
+    in the overlaps, noise at 0.01 (tests/test_torch_overlap.py)."""
+    t = np.arange(SR * seconds) / SR
+    s0 = 0.3 * np.sin(2 * np.pi * 220 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 2.0 * t))
+    s1 = 0.2 * np.sin(2 * np.pi * 800 * t) + 0.1 * np.sin(2 * np.pi * 1000 * t)
+    on0, on1 = np.zeros_like(t), np.zeros_like(t)
+    for a, b in ((0, 6), (8, 14), (17, 20)):
+        on0[int(a * SR): int(b * SR)] = 1
+    for a, b in ((5, 8), (12.5, 16), (19, 24)):
+        on1[int(a * SR): int(b * SR)] = 1
+    x = s0 * on0 + s1 * on1 + 0.01 * np.random.default_rng(0).standard_normal(len(t))
+    return x.astype(np.float32)
+
+
+OVERLAP_SEGMENTS = [  # (start, end, speaker): tests/test_torch_overlap.py's
+    (0.0, 5.0, 0), (4.5, 6.0, 0), (5.0, 8.0, 1), (6.2, 8.0, 1), (8.0, 12.5, 0), (12.0, 14.0, 0),
+    (12.5, 16.0, 1), (15.0, 15.6, 2), (15.5, 16.5, 0), (17.0, 19.0, 0), (18.5, 20.0, 0),
+    (19.0, 24.0, 1), (20.5, 24.0, 1)]
+OVERLAP_REGIONS = [(5.0, 6.0), (12.5, 14.0), (15.2, 15.5), (15.0, 16.0), (19.0, 20.0)]
+
+
+def overlap_requests(dev, model, card_models, senko_segments, tmp):
+    """Overlap separation on the card: (a) one _run_overlap_separation on
+    planted 2-speaker segments and regions (the launch counts zeroed just
+    before, read just after): three regions separated, each stream
+    re-decoded through kernels 1-3; kernel 1 at the ASR config on an
+    embedding's frames against its twin; a re-decode of two streams timed;
+    (b) TranscriberPipeline with Senko diarization and overlap_separation on
+    100 s, through a facade that reports a region at the card's last
+    speaker change of the 100 s run."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline import diarization_post as dp
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization import SpeakerDiarizer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_senko import SenkoCamppDiarizer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.overlap import OverlapSeparator
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+
+    seg_model, campp, ct = card_models
+    sep = OverlapSeparator(convtasnet=ct, campp=campp, device=dev)
+
+    class Planted:
+        overlap_regions = OVERLAP_REGIONS
+
+    audio = overlap_audio()
+    path = os.path.join(tmp, "overlap.wav")
+    write_wav(path, audio, SR)
+    pipe = TranscriberPipeline(path, model, {"speaker_diarization": True,
+                                             "overlap_separation": True,
+                                             "_overlap_separator": sep}, diarizer=Planted())
+    segs = [dp.Segment(s, e, k) for s, e, k in OVERLAP_SEGMENTS]
+    pipe._run_overlap_separation(audio, segs, {})  # warm
+    separated = sep.process(audio, [{"start": s.start, "end": s.end, "speaker": s.speaker}
+                                    for s in segs], OVERLAP_REGIONS)
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    timing = {}
+    t0 = time.perf_counter()
+    ov = pipe._run_overlap_separation(audio, segs, timing)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    streams = [a for reg in separated for a in reg["audio_per_speaker"].values()]
+    decoder = BatchedChunkDecoder(model, max_batch=8)
+    t0 = time.perf_counter()
+    for a in streams[:2]:
+        decoder.decode_spans(a, [(0, len(a))])
+    torch.cuda.synchronize()
+    reasr = time.perf_counter() - t0
+    log(f"overlap _run_overlap_separation: {len(separated)} regions separated, {len(ov)} "
+        f"parallel segments, wall {wall:.3f} s (timing {timing['overlap_separation']:.3f} s); "
+        f"re-decode of two streams ({len(streams[0]) / SR:.2f} s, {len(streams[1]) / SR:.2f} s) "
+        f"{reasr:.3f} s; launches {launches} ({card()})")
+    assert len(separated) == 3, "overlap: the planted regions were not separated"
+    assert all(n > 0 for n in launches.values()), "a kernel never ran on the overlap path"
+
+    cfg = fbank.ASR_FBANK
+    clip = torch.from_numpy(audio[: 10 * SR]).to(dev)
+    frames = fbank._frame_signal(clip, cfg).reshape(-1, cfg.n_fft).contiguous()
+    mean, mx = fbank_errors(fbank.logmel(frames, cfg), fbank._logmel_plain(frames, cfg))
+    ms = time_ms(lambda: fbank.logmel(frames, cfg))
+    plain_ms = time_ms(lambda: fbank._logmel_plain(frames, cfg))
+    b = fbank_bound(frames.shape[0], cfg, dev)
+    log(f"overlap kernel 1 at ASR_FBANK on a 10 s embedding clip: F {frames.shape[0]} vs twin "
+        f"mean {mean:.3e} max {mx:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']}")
+    assert fbank_gate(mean, mx), "kernel 1 at the overlap's shape outside the gate"
+    kernel1 = {"name": "fbank_logmel_overlap", "route": "cuda",
+               "source": "sherpa_vietnamese_asr_tpu_torch/csrc/fbank_logmel.cu",
+               "replaces": "sherpa_vietnamese_asr_tpu/ops/fbank.py:149", "max_abs_err": mx,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "launches": launches["fbank_logmel"], **b}
+
+    changes = [nxt["start"] for seg, nxt in zip(senko_segments, senko_segments[1:])
+               if seg["speaker"] != nxt["speaker"]]
+    mid = changes[len(changes) // 2] if changes else 11.0
+    region = (mid - 1.0, mid + 1.0)
+
+    class PlantedFacade(SpeakerDiarizer):
+        @property
+        def overlap_regions(self):
+            return [region]
+
+    facade = PlantedFacade("senko_campp")
+    facade._backend = SenkoCamppDiarizer(seg_model=seg_model, campp_model=campp, device=dev)
+    path = os.path.join(tmp, "senko_overlap.wav")
+    write_wav(path, diarization_audio(SENKO_SECONDS), SR)
+    phases = []
+    t0 = time.perf_counter()
+    res = TranscriberPipeline(path, model, {"bypass_vad": True, "speaker_diarization": True,
+                                            "speaker_model": "senko_campp",
+                                            "overlap_separation": True,
+                                            "_overlap_separator": sep},
+                              diarizer=facade, progress_callback=phases.append).run()
+    wall = time.perf_counter() - t0
+    log(f"overlap pipeline {SENKO_SECONDS} s (Senko + overlap_separation, region "
+        f"{region[0]:.2f}-{region[1]:.2f} s): wall {wall:.3f} s, "
+        f"{len(res['overlap_segments'])} overlap segments, timing diarization (overlap "
+        f"separation included) {res['timing']['diarization']:.3f} s ({card()})")
+    assert any(p.startswith("PHASE:OverlapSep|Done") for p in phases), "overlap stage did not run"
+    return kernel1, launches
+
+
+def phase_senko_overlap(dev, model, tmp):
+    """Senko diarization and overlap separation on the card at full width:
+    CAM++ and Conv-TasNet against their CPU twins, kernel 1 at CAMPP_FBANK,
+    Senko requests (100 s against the CPU, 600 s, the 1,260 s UMAP route)
+    and the overlap stage with its re-decodes. Returns the two kernel 1
+    entries of the kernels line and each path's launches."""
+    t0 = time.perf_counter()
+    card_models, cpu_models = senko_models(dev)
+    log(f"senko: PyanNet, CAM++ and Conv-TasNet random (torch.Generator seed 0) on {dev} and "
+        f"the CPU in {time.perf_counter() - t0:.1f} s")
+    check_campp_block(dev, card_models[1], cpu_models[1])
+    check_separation(dev, card_models[2], cpu_models[2])
+    senko_k1, senko_launches, segments = senko_requests(dev, model, card_models, cpu_models,
+                                                        tmp)
+    overlap_k1, overlap_launches = overlap_requests(dev, model, card_models, segments, tmp)
+    log(f"senko and overlap phase {time.perf_counter() - t0:.1f} s")
+    return [senko_k1, overlap_k1], senko_launches, overlap_launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -2934,11 +3364,15 @@ def main(argv=None):
     log("PHASE punctuation and quality ok")
     launches_stream = phase_streaming(dev, model, model16)
     log("PHASE streaming ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        senko_kernels, launches_senko, launches_overlap = phase_senko_overlap(dev, model, tmp)
+    log("PHASE senko and overlap ok")
     paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
-             launches_punct, launches_stream)
+             launches_punct, launches_stream, launches_senko, launches_overlap)
     for k in kernels:  # each kernel's count from the first path that runs it
         k["route"] = "cuda"
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)
+    kernels += senko_kernels  # kernel 1 on the Senko and overlap paths, counted there
     assert all(k["launches"] > 0 for k in kernels), "a kernel ran on no path"
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

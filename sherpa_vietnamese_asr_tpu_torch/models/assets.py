@@ -1,8 +1,7 @@
 # Copied from sherpa_vietnamese_asr_tpu/models/assets.py (host-only; only the package path changes).
-# Not copied yet: load_campp_asset and load_convtasnet_asset, which come
-# with the slices that port their models; load_silero, load_segmentation,
-# load_embedding_split, load_vibert_asset and load_dnsmos_asset return the
-# port's (state, cfg).
+# Every loader (load_silero, load_segmentation, load_embedding_split,
+# load_campp_asset, load_convtasnet_asset, load_vibert_asset and
+# load_dnsmos_asset) returns the port's (state, cfg).
 # Central model-asset registry: pinned identities, SHA256 verification,
 # discovery, cached loading, and the random-weight policy.
 #
@@ -293,6 +292,24 @@ def load_embedding_split(verify: bool = True):
         paths["embedding_encoder.onnx"],
         paths["resnet_seg_1_weight.npy"],
         paths["resnet_seg_1_bias.npy"]))
+
+
+def load_campp_asset(verify: bool = True):
+    paths = asset_paths("campp", verify)
+    if paths is None:
+        return None
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import load_campp
+    return _cached("campp", lambda: load_campp(
+        paths["campplus_cn_en_common_200k.onnx"]))
+
+
+def load_convtasnet_asset(verify: bool = True):
+    paths = asset_paths("convtasnet", verify)
+    if paths is None:
+        return None
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_import import load_convtasnet
+    return _cached("convtasnet", lambda: load_convtasnet(
+        paths["convtasnet_16k.onnx"]))
 
 
 def load_vibert_asset(verify: bool = True):

@@ -7,7 +7,9 @@
 # VAD tree into models/silero_vad.SileroVad, the PyanNet and ResNet34
 # diarization trees into models/pyannet.PyanNet and
 # models/resnet_speaker.ResNetSpeaker, the ViBERT tree, float32 or int8, into
-# models/vibert.ViBert and the DNSMOS tree into models/dnsmos.Dnsmos) with
+# models/vibert.ViBert, the DNSMOS tree into models/dnsmos.Dnsmos, and the
+# CAM++ and Conv-TasNet trees into models/campplus.Campp and
+# models/convtasnet.ConvTasNet) with
 # every layout change done here, so the same weights run through both
 # packages. A streaming Zipformer state of the JAX package converts too
 # (streaming_state_from_numpy), so both packages can go on from one
@@ -23,6 +25,8 @@ from sherpa_vietnamese_asr_tpu_torch.models.registry import (
     build_modules,
     model_device,
 )
+from sherpa_vietnamese_asr_tpu_torch.models.campplus import Campp, CamppConfig
+from sherpa_vietnamese_asr_tpu_torch.models.convtasnet import ConvTasNet, ConvTasNetConfig
 from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import Dnsmos, DnsmosConfig
 from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
 from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
@@ -205,9 +209,11 @@ def pyannet_state_dict(params) -> dict:
 
 
 def _batch_norm(out, prefix, p):
+    """A BatchNorm's statistics, and its affine where the tree has one."""
     for src, dst in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
                      ("var", "running_var")):
-        out[f"{prefix}.{dst}"] = np.asarray(p[src])
+        if src in p:
+            out[f"{prefix}.{dst}"] = np.asarray(p[src])
     out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
@@ -324,5 +330,114 @@ def dnsmos_from_numpy(state, cfg: DnsmosConfig, device="cuda") -> Dnsmos:
     models/onnx_import.load_dnsmos)."""
     device = model_device(device)
     model = Dnsmos(cfg)
+    _load(model, state)
+    return model.to(device)
+
+
+def _conv1d_kio(a):
+    """JAX conv1d kernel [K, I, O] -> torch [O, I, K]."""
+    return np.asarray(a).transpose(2, 1, 0)
+
+
+def campp_state_dict(params) -> dict:
+    """JAX CAM++ tree -> Campp state dict (numpy values, the 3D-Speaker
+    names): FCM kernels [kT, kF, I, O] -> [O, I, kF, kT], conv1d kernels
+    [K, I, O] -> [O, I, K], the CAM linears and the embedding linear [I, O]
+    -> 1x1 Conv1d [O, I, 1], BatchNorm (scale, bias, mean, var) ->
+    (weight, bias, running_mean, running_var)."""
+    fcm = params["fcm"]
+    out = {"head.conv1.weight": _conv_tfio(fcm["conv1"]["weight"])}
+    _batch_norm(out, "head.bn1", fcm["bn1"])
+    for name in ("layer1", "layer2"):
+        for j, blk in enumerate(fcm[name]):
+            pre = f"head.{name}.{j}"
+            out[f"{pre}.conv1.weight"] = _conv_tfio(blk["conv1"]["weight"])
+            _batch_norm(out, f"{pre}.bn1", blk["bn1"])
+            out[f"{pre}.conv2.weight"] = _conv_tfio(blk["conv2"]["weight"])
+            _batch_norm(out, f"{pre}.bn2", blk["bn2"])
+            if "shortcut_conv" in blk:
+                out[f"{pre}.shortcut.0.weight"] = _conv_tfio(blk["shortcut_conv"]["weight"])
+                _batch_norm(out, f"{pre}.shortcut.1", blk["shortcut_bn"])
+    out["head.conv2.weight"] = _conv_tfio(fcm["conv2"]["weight"])
+    _batch_norm(out, "head.bn2", fcm["bn2"])
+
+    def lin_1x1(p):
+        return np.asarray(p["weight"]).T[:, :, None]
+
+    out["xvector.tdnn.linear.weight"] = _conv1d_kio(params["tdnn"]["weight"])
+    _batch_norm(out, "xvector.tdnn.nonlinear.batchnorm", params["tdnn_bn"])
+    for bi, block in enumerate(params["blocks"]):
+        for j, layer in enumerate(block):
+            pre = f"xvector.block{bi + 1}.tdnnd{j + 1}"
+            _batch_norm(out, f"{pre}.nonlinear1.batchnorm", layer["bn1"])
+            out[f"{pre}.linear1.weight"] = _conv1d_kio(layer["lin1"]["weight"])
+            _batch_norm(out, f"{pre}.nonlinear2.batchnorm", layer["bn2"])
+            out[f"{pre}.cam_layer.linear_local.weight"] = _conv1d_kio(
+                layer["local"]["weight"])
+            for k in ("cam1", "cam2"):
+                name = f"{pre}.cam_layer.linear{k[-1]}"
+                out[f"{name}.weight"] = lin_1x1(layer[k])
+                out[f"{name}.bias"] = np.asarray(layer[k]["bias"])
+        tr = params["transitions"][bi]
+        _batch_norm(out, f"xvector.transit{bi + 1}.nonlinear.batchnorm", tr["bn"])
+        out[f"xvector.transit{bi + 1}.linear.weight"] = _conv1d_kio(tr["conv"]["weight"])
+    _batch_norm(out, "xvector.out_nonlinear.batchnorm", params["final_bn"])
+    out["xvector.dense.linear.weight"] = lin_1x1(params["dense"]["lin"])
+    _batch_norm(out, "xvector.dense.nonlinear.batchnorm", params["dense"]["bn"])
+    return out
+
+
+def campp_from_numpy(state, cfg: CamppConfig, device="cuda") -> Campp:
+    """A Campp on `device`, the card by default (raises without one), from a
+    Campp state dict of numpy arrays (campp_state_dict, or
+    models/onnx_import.load_campp)."""
+    device = model_device(device)
+    model = Campp(cfg)
+    _load(model, state)
+    return model.to(device)
+
+
+def convtasnet_state_dict(params) -> dict:
+    """JAX Conv-TasNet tree -> ConvTasNet state dict (numpy values, asteroid's
+    names): conv kernels [K, I, O] -> [O, I, K], gLN scale/bias -> gamma/beta
+    [1, C, 1], PReLU alphas as they are, the decoder [N, L] -> [N, 1, L].
+    asteroid's free filterbanks have no bias: a non-zero encoder bias in the
+    tree raises."""
+    if np.any(np.asarray(params["encoder"]["bias"]) != 0):
+        raise ValueError("Conv-TasNet encoder bias: asteroid's filterbank has none")
+
+    def conv(out, prefix, p):
+        out[f"{prefix}.weight"] = _conv1d_kio(p["weight"])
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+    def gln(out, prefix, p):
+        out[f"{prefix}.gamma"] = np.asarray(p["scale"]).reshape(1, -1, 1)
+        out[f"{prefix}.beta"] = np.asarray(p["bias"]).reshape(1, -1, 1)
+
+    out = {"encoder.filterbank._filters": _conv1d_kio(params["encoder"]["weight"]),
+           "decoder.filterbank._filters": np.asarray(params["decoder"])[:, None, :],
+           "masker.mask_net.0.weight": np.asarray(params["mask_prelu"]).reshape(1)}
+    gln(out, "masker.bottleneck.0", params["ln_in"])
+    conv(out, "masker.bottleneck.1", params["bottleneck_in"])
+    conv(out, "masker.mask_net.1", params["mask_out"])
+    for i, blk in enumerate(params["blocks"]):
+        pre = f"masker.TCN.{i}"
+        conv(out, f"{pre}.shared_block.0", blk["in_conv"])
+        out[f"{pre}.shared_block.1.weight"] = np.asarray(blk["prelu1"]).reshape(1)
+        gln(out, f"{pre}.shared_block.2", blk["ln1"])
+        conv(out, f"{pre}.shared_block.3", blk["dw_conv"])
+        out[f"{pre}.shared_block.4.weight"] = np.asarray(blk["prelu2"]).reshape(1)
+        gln(out, f"{pre}.shared_block.5", blk["ln2"])
+        conv(out, f"{pre}.res_conv", blk["res_conv"])
+        conv(out, f"{pre}.skip_conv", blk["skip_conv"])
+    return out
+
+
+def convtasnet_from_numpy(state, cfg: ConvTasNetConfig, device="cuda") -> ConvTasNet:
+    """A ConvTasNet on `device`, the card by default (raises without one),
+    from a ConvTasNet state dict of numpy arrays (convtasnet_state_dict, or
+    models/onnx_import.load_convtasnet)."""
+    device = model_device(device)
+    model = ConvTasNet(cfg)
     _load(model, state)
     return model.to(device)

@@ -18,10 +18,9 @@
 # load_zipformer_rnnt for an ASR model directory, load_silero_vad for
 # silero_vad_16k_op15.onnx, load_pyannet for segmentation-community-1.onnx
 # and load_resnet_speaker for embedding_encoder.onnx with its projection's
-# .npy files (both modules mirror the upstream trees, so their name maps are
-# the identity). The other loaders of the reference (load_vibert,
-# load_dnsmos, load_campp, load_convtasnet) come with the slices that run
-# those models.
+# .npy files, load_campp for campplus_cn_en_common_200k.onnx and
+# load_convtasnet for convtasnet_16k.onnx (these modules mirror the upstream
+# trees, so their name maps are the identity), load_vibert and load_dnsmos.
 
 from __future__ import annotations
 
@@ -877,4 +876,106 @@ def load_dnsmos(path, cfg=None):
     state["dense1.bias"] = find_bias(d1.shape[1]).astype(f32)
     state["head.weight"] = head.T.astype(f32)
     state["head.bias"] = find_bias(3).astype(f32)
+    return state, cfg
+
+
+def campp_name_map(cfg):
+    """3D-Speaker CAM++ names (campplus_cn_en_common_200k.onnx) -> Campp
+    state-dict keys: the same names, the module mirrors the upstream tree.
+    Each BatchNorm is a group with identity defaults, used when the exporter
+    folded the whole group into the convolution (running_var 1 - 1e-5, so
+    that var + eps is 1)."""
+    from sherpa_vietnamese_asr_tpu_torch.models.campplus import Campp
+
+    defaults = {"weight": 1.0, "bias": 0.0, "running_mean": 0.0,
+                "running_var": 1.0 - 1e-5}
+    bn_prefixes = {k.rsplit(".", 1)[0] for k in Campp(cfg).state_dict()
+                   if k.endswith(".running_var")}
+    m = {}
+    for k in Campp(cfg).state_dict():
+        if k.endswith(".num_batches_tracked"):
+            continue
+        prefix, leaf = k.rsplit(".", 1)
+        m[k] = (k, None, prefix, defaults[leaf]) if prefix in bn_prefixes else (k, None)
+    return m
+
+
+def load_campp(path, cfg=None):
+    """Load campplus_cn_en_common_200k.onnx into (state, cfg) for
+    models/campplus.Campp. The config is derived from the file's tensor
+    shapes unless given, as the JAX package's load_campp derives it."""
+    from sherpa_vietnamese_asr_tpu_torch.models.campplus import Campp, CamppConfig
+
+    init = _strip_prefixes(read_onnx(path)["initializers"])
+    if cfg is None:
+        tdnn_w = init.get("xvector.tdnn.linear.weight")
+        if tdnn_w is None:
+            raise ImportReport(
+                "[campp] xvector.tdnn.linear.weight not found; first names: "
+                f"{sorted(init)[:8]}")
+        init_ch, fcm_out = tdnn_w.shape[:2]
+        mc = init["head.conv1.weight"].shape[0]
+        layers = []
+        bi = 1
+        while f"xvector.block{bi}.tdnnd1.linear1.weight" in init:
+            j = 1
+            while f"xvector.block{bi}.tdnnd{j}.linear1.weight" in init:
+                j += 1
+            layers.append(j - 1)
+            bi += 1
+        growth = init["xvector.block1.tdnnd1.cam_layer.linear_local.weight"].shape[0]
+        bn_ch = init["xvector.block1.tdnnd1.linear1.weight"].shape[0]
+        cfg = CamppConfig(num_mels=fcm_out // mc * 8, m_channels=mc,
+                          init_channels=init_ch, growth_rate=growth,
+                          bn_size=bn_ch // growth, block_layers=tuple(layers),
+                          dilations=(1, 2, 2)[: len(layers)],
+                          embed_dim=init["xvector.dense.linear.weight"].shape[0])
+    state = _template(Campp(cfg))
+    map_initializers(init, campp_name_map(cfg), state, label="campp",
+                     fallback_match=True)
+    return state, cfg
+
+
+def convtasnet_name_map(cfg):
+    """asteroid Conv-TasNet names (convtasnet_16k.onnx) -> ConvTasNet
+    state-dict keys: the same names, the module mirrors the upstream tree."""
+    from sherpa_vietnamese_asr_tpu_torch.models.convtasnet import ConvTasNet
+
+    return {k: (k, None) for k in ConvTasNet(cfg).state_dict()}
+
+
+def load_convtasnet(path, cfg=None):
+    """Load convtasnet_16k.onnx into (state, cfg) for
+    models/convtasnet.ConvTasNet. The config is derived from the file's
+    tensor shapes unless given, as the JAX package's load_convtasnet derives
+    it (the stride is half the filter length)."""
+    from sherpa_vietnamese_asr_tpu_torch.models.convtasnet import (
+        ConvTasNet,
+        ConvTasNetConfig,
+    )
+
+    init = _strip_prefixes(read_onnx(path)["initializers"])
+    if cfg is None:
+        enc = init.get("encoder.filterbank._filters")
+        if enc is None:
+            raise ImportReport(
+                "[convtasnet] encoder.filterbank._filters not found; first "
+                f"names: {sorted(init)[:8]}")
+        n_filters, _, kernel = enc.shape
+        n_tcn = 0
+        while f"masker.TCN.{n_tcn}.res_conv.weight" in init:
+            n_tcn += 1
+        base = ConvTasNetConfig()
+        n_blocks = base.n_blocks if n_tcn % base.n_blocks == 0 else n_tcn
+        cfg = ConvTasNetConfig(
+            n_filters=n_filters, kernel=kernel, stride=kernel // 2,
+            bottleneck=init["masker.bottleneck.1.weight"].shape[0],
+            hidden=init["masker.TCN.0.shared_block.0.weight"].shape[0],
+            skip=init["masker.TCN.0.skip_conv.weight"].shape[0],
+            conv_kernel=init["masker.TCN.0.shared_block.3.weight"].shape[2],
+            n_blocks=n_blocks, n_repeats=n_tcn // n_blocks,
+            n_src=init["masker.mask_net.1.weight"].shape[0] // n_filters)
+    state = _template(ConvTasNet(cfg))
+    map_initializers(init, convtasnet_name_map(cfg), state, label="convtasnet",
+                     fallback_match=True)
     return state, cfg

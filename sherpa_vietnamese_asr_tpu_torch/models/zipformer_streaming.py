@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sherpa_vietnamese_asr_tpu_torch.models.registry import model_device
 from sherpa_vietnamese_asr_tpu_torch.models.zipformer import (
     ConvModule,
     EncoderEmbed,
@@ -74,11 +75,13 @@ def stack_cache_frames(scfg: StreamingConfig, ds: int) -> int:
 
 
 def init_streaming_state(cfg: ZipformerConfig, scfg: StreamingConfig,
-                         batch: int, device="cpu") -> dict:
+                         batch: int, device="cuda") -> dict:
     """Zero state for streaming_step: {"fbank_tail" [B, 7, 80],
     "convnext_tail" [B, C3, 6, F'], "stacks": [[layer state]]}, each layer
     state {key/na/v1/v2_cache [B, L_i, D_i], conv1/conv2_tail
-    [B, kernel-1, D_i]}, all float32 on `device`."""
+    [B, kernel-1, D_i]}, all float32 on `device`, the card by default
+    (raises without one, as the model constructors do)."""
+    device = model_device(device)
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

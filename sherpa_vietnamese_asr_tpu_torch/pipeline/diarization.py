@@ -2,14 +2,12 @@
 # run_diarization orchestration.
 #
 # Port of sherpa_vietnamese_asr_tpu/pipeline/diarization.py (the registry,
-# SpeakerDiarizer with its background pass, diarize_and_remap and
-# run_diarization), with two differences:
-#   * the Senko CAM++ backend is not ported yet (ROADMAP Queue A item 8): a
-#     Senko model id raises NotImplementedError when the facade is built;
-#   * a failed background pass is re-run synchronously once, as in the JAX
-#     package, but a failure of that run raises instead of being retried
-#     again or swallowed. The background thread sets the backend's CUDA
-#     device before its first launch.
+# SpeakerDiarizer over the PureDiarizer and Senko CAM++ backends with its
+# background pass, diarize_and_remap and run_diarization), with one
+# difference: a failed background pass is re-run synchronously once, as in
+# the JAX package, but a failure of that run raises instead of being
+# retried again or swallowed. The background thread sets the backend's CUDA
+# device before its first launch.
 
 from __future__ import annotations
 
@@ -82,21 +80,24 @@ class SpeakerDiarizer:
         self.backend_kwargs = backend_kwargs or {}
         self._backend = None
         self._bg = None
+
+    def initialize(self):
         info = SPEAKER_EMBEDDING_MODELS.get(self.model_id,
                                             SPEAKER_EMBEDDING_MODELS[
                                                 "community1_pure_ort"])
         if info.get("backend") == "senko":
-            raise NotImplementedError(
-                f"speaker model {embedding_model_id!r}: the Senko CAM++ "
-                "backend is not ported yet (ROADMAP Queue A item 8)")
-
-    def initialize(self):
-        from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import (
-            PureDiarizer,
-        )
-        self._backend = PureDiarizer(
-            num_speakers=self.num_clusters, threshold=self.threshold,
-            **self.backend_kwargs)
+            from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_senko import (
+                SenkoCamppDiarizer,
+            )
+            self._backend = SenkoCamppDiarizer(
+                num_speakers=self.num_clusters, **self.backend_kwargs)
+        else:
+            from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import (
+                PureDiarizer,
+            )
+            self._backend = PureDiarizer(
+                num_speakers=self.num_clusters, threshold=self.threshold,
+                **self.backend_kwargs)
         return self
 
     @property

@@ -10,18 +10,21 @@
 #   background thread, on its own CUDA stream] -> silence-aware 30 s/3 s
 #   chunk plan -> batched decode [per-chunk WPE] [-> ROVER over a model
 #   pair] -> overlap merge -> suspect detect -> filler removal -> [quality
-#   result] -> [speaker diarization] -> [punctuation, then sentences aligned
-#   to words (and speakers)] or pause segmentation [-> words split by
-#   speaker] -> result.
+#   result] -> [speaker diarization [-> overlap separation: Conv-TasNet on
+#   the diarizer's 2-speaker overlap regions and a re-decode of each
+#   separated stream with the first model]] -> [punctuation, then sentences
+#   aligned to words (and speakers)] or pause segmentation [-> words split
+#   by speaker] -> result.
 # max_batch 0, None or a negative value resolves once, on the model's
-# device (pipeline/calibration.resolve_max_batch). Overlap separation is not
-# ported yet and raises NotImplementedError instead of being skipped.
+# device (pipeline/calibration.resolve_max_batch). overlap_separation
+# without speaker_diarization does nothing, as in the JAX package.
 #
 # One difference in behaviour: the JAX pipeline catches a failure of the
-# diarization, punctuation or quality stage, logs it and returns a result
-# without speakers, punctuation or quality. Here it propagates out of
-# run(), so a stage that fails on the card can never end in a run that
-# looks successful.
+# diarization (overlap separation and its re-decodes included), punctuation
+# or quality stage, logs it and returns a result without speakers, overlap
+# segments, punctuation or quality. Here it propagates out of run(), so a
+# stage that fails on the card can never end in a run that looks
+# successful.
 
 from __future__ import annotations
 
@@ -69,9 +72,6 @@ from sherpa_vietnamese_asr_tpu_torch.pipeline.suspect import (
 from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import is_int16_exact, load_audio
 
 SAMPLE_RATE = 16000
-
-# config flags of the JAX pipeline whose stages are not ported yet
-_UNPORTED_FLAGS = ("overlap_separation",)
 
 
 def segment_words_by_pause(all_words, max_words=15, pause_sec=0.8):
@@ -124,7 +124,9 @@ class TranscriberPipeline:
             0, None or negative: automatic), calibration_report,
             decode_transfer_dtype ("float32" | "int16"),
             speaker_diarization (with speaker_model, num_speakers,
-            diarization_threshold, diarize_overlap_decode),
+            diarization_threshold, diarize_overlap_decode,
+            overlap_separation and _overlap_separator: an
+            overlap.OverlapSeparator, else one on the model's device),
             restore_punctuation (with bypass_restorer,
             punctuation_confidence, case_confidence, prefer_int8),
             quality_analysis (with quality_overlap_decode).
@@ -153,9 +155,6 @@ class TranscriberPipeline:
         else:
             self.model, self.model_b = model, None
         self.config = dict(config or {})
-        for flag in _UNPORTED_FLAGS:
-            if self.config.get(flag, False):
-                raise NotImplementedError(f"config {flag!r} is not ported yet")
         # An absent key keeps 8; 0, None or a negative value means "auto".
         self.max_batch = resolve_max_batch(self.config, device=self.model.device)
         self.progress_callback = progress_callback
@@ -504,6 +503,7 @@ class TranscriberPipeline:
             quality_info = self._quality(concat_audio, timing)
         raw_speaker_segments = None
         speaker_segments_raw = []
+        overlap_segments = []
         word_speaker = None
         if self._diarize() and all_words:
             t_diar = time.time()
@@ -532,6 +532,9 @@ class TranscriberPipeline:
             word_speaker = dp.speaker_labels_for_words(all_words,
                                                        raw_speaker_segments)
             self._emit("PHASE:Diarization|Done|100")
+            if self.config.get("overlap_separation", False):
+                overlap_segments = self._run_overlap_separation(
+                    audio, raw_speaker_segments, timing)
             timing["diarization"] = time.time() - t_diar
         if self._cancelled():
             return None
@@ -590,10 +593,60 @@ class TranscriberPipeline:
             "execution_provider": device.type,
             "stage_execution_providers": {},
             "asr_provider_info": {"backend": "torch", "device": str(device)},
-            "overlap_segments": [],
+            "overlap_segments": overlap_segments,
         }
         self._clear_checkpoint()
         return result
+
+    def _run_overlap_separation(self, audio, raw_speaker_segments, timing):
+        """Conv-TasNet separation of the diarizer's 2-speaker overlap
+        regions and a re-decode of each stream with the first model (as the
+        JAX pipeline's _run_overlap_separation). Returns the parallel
+        segments of the result's overlap_segments."""
+        overlap_regions = list(getattr(self.diarizer, "overlap_regions", None) or [])
+        if not overlap_regions:
+            return []
+        t0 = time.time()
+        self._emit(f"PHASE:OverlapSep|Separating overlaps "
+                   f"({len(overlap_regions)} regions)|0")
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.overlap import OverlapSeparator
+
+        sep = (self.config.get("_overlap_separator")
+               or OverlapSeparator(device=self.model.device))
+        seg_dicts = [{"start": s.start, "end": s.end, "speaker": s.speaker}
+                     for s in raw_speaker_segments]
+        results = sep.process(
+            audio, seg_dicts, overlap_regions,
+            progress_callback=lambda pct: self._emit(
+                f"PHASE:OverlapSep|Separating overlaps|{int(pct)}"))
+        decoder = BatchedChunkDecoder(self.model, max_batch=self.max_batch)
+        ov_segments = []
+        for ri, reg in enumerate(results):
+            self._emit(f"PHASE:OverlapSep|Re-ASR overlap "
+                       f"{ri + 1}/{len(results)}|"
+                       f"{int(50 + (ri + 1) / max(1, len(results)) * 40)}")
+            for spk, spk_audio in reg["audio_per_speaker"].items():
+                real_s = reg["real_start_per_speaker"][spk]
+                real_e = reg["real_end_per_speaker"][spk]
+                words = decoder.decode_spans(spk_audio.astype(np.float32),
+                                             [(0, len(spk_audio))])[0]
+                shift = reg["start"] - real_s
+                kept = [dict(w, start=w["start"] + shift, end=w["end"] + shift)
+                        for w in words
+                        if real_s <= (w["start"] + w["end"]) / 2 <= real_e]
+                text = " ".join(w["text"] for w in kept if w.get("text")).strip()
+                if not text:
+                    continue
+                ov_segments.append({
+                    "speaker": f"Người nói {spk + 1}",
+                    "speaker_id": int(spk),
+                    "start": reg["start"], "end": reg["end"],
+                    "text": text, "raw_words": kept, "overlap": True,
+                })
+        timing["overlap_separation"] = time.time() - t0
+        self._emit(f"PHASE:OverlapSep|Done "
+                   f"({len(ov_segments)} parallel segments)|100")
+        return ov_segments
 
     def _default_vad_prob_fn(self):
         """Silero VAD on the model's device: the checkpoint from the asset

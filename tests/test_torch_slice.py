@@ -5,13 +5,17 @@
 #   (b) fbank -> encoder -> beam search reproduces the frozen true-size
 #       fixture tests/data/golden_e2e.json (weights from the JAX package's
 #       golden model, converted);
-#   (c) importing every module of the port never loads jax.
+#   (c) importing every module of the port never loads jax;
+#   (d) the Senko CAM++ backend and overlap separation, alone, with a ROVER
+#       pair and beside punctuation and quality, give the JAX pipeline's
+#       speakers, overlap segments and words (test_unported_stages_raise).
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -172,6 +176,99 @@ def test_port_imports_never_load_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# Overlap regions the stage-test diarizers report in both packages. The
+# Senko backend splits diarization_audio(20) into turns at 3.45, 7.05 and
+# 11.85 s: (10.8, 12.8) straddles the last change and leaves each speaker a
+# clean turn for its centroid; (1.0, 1.6) is too short to be separated. The
+# random PureDiarizer hears one speaker there, so no region of its has two
+# participants.
+PLANTED_REGIONS = [(1.0, 1.6), (10.8, 12.8)]
+
+
+@pytest.fixture(scope="module")
+def stage_models():
+    """The tiny ASR pair, and the diarization, CAM++ and Conv-TasNet weights
+    of tests/test_torch_diarization.py, test_torch_senko.py and
+    test_torch_overlap.py, in both packages."""
+    from sherpa_vietnamese_asr_tpu.models.campplus import TINY_CAMPP
+    from sherpa_vietnamese_asr_tpu.models.convtasnet import TINY_CONVTASNET
+    from sherpa_vietnamese_asr_tpu.models.resnet_speaker import TINY_RESNET as JAX_TINY
+
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import TINY_RESNET
+    from tests.test_torch_default_path import _jax_model
+    from tests.test_torch_diarization import (
+        diarization_audio,
+        jax_emb_params,
+        jax_seg_params,
+        port_models,
+        tiny_seg_cfgs,
+    )
+    from tests.test_torch_overlap import jax_convtasnet_params, port_convtasnet
+    from tests.test_torch_senko import centred_campp_params, port_campp, port_cfg
+
+    jms = [_jax_model(0), _jax_model(1)]
+    jseg_cfg, seg_cfg = tiny_seg_cfgs()
+    seg_p, emb_p = jax_seg_params(jseg_cfg), jax_emb_params(JAX_TINY)
+    campp_p = centred_campp_params(TINY_CAMPP, diarization_audio(40))
+    ct_p = jax_convtasnet_params(TINY_CONVTASNET)
+    seg, emb = port_models(seg_p, seg_cfg, emb_p, TINY_RESNET)
+    campp, ct = port_campp(campp_p, port_cfg(TINY_CAMPP)), port_convtasnet(ct_p, TINY_CONVTASNET)
+    return {"jms": jms, "tms": [_convert(jm, beam_size=4) for jm in jms],
+            "jax": {"load_segmentation": (seg_p, jseg_cfg),
+                    "load_embedding_split": (emb_p, JAX_TINY),
+                    "load_campp_asset": (campp_p, TINY_CAMPP),
+                    "load_convtasnet_asset": (ct_p, TINY_CONVTASNET)},
+            "port": {name: ({k: v.numpy() for k, v in m.state_dict().items()}, m.cfg)
+                     for name, m in (("load_segmentation", seg), ("load_embedding_split", emb),
+                                     ("load_campp_asset", campp),
+                                     ("load_convtasnet_asset", ct))}}
+
+
+@pytest.fixture
+def stage_assets(stage_models, monkeypatch):
+    """Both asset registries hand out the tiny models, and both packages'
+    diarization backends report PLANTED_REGIONS as their overlap regions."""
+    import sherpa_vietnamese_asr_tpu.models.assets as jassets
+    import sherpa_vietnamese_asr_tpu.pipeline.diarization_pure as jpure
+    import sherpa_vietnamese_asr_tpu.pipeline.diarization_senko as jsenko
+
+    import sherpa_vietnamese_asr_tpu_torch.models.assets as tassets
+    import sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure as tpure
+    import sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_senko as tsenko
+
+    for assets, key in ((jassets, "jax"), (tassets, "port")):
+        for name, value in stage_models[key].items():
+            monkeypatch.setattr(assets, name, lambda verify=True, value=value: value)
+    planted = property(lambda self: list(PLANTED_REGIONS))
+    for cls in (jpure.PureDiarizer, jsenko.SenkoCamppDiarizer, tpure.PureDiarizer,
+                tsenko.SenkoCamppDiarizer):
+        monkeypatch.setattr(cls, "overlap_regions", planted)
+
+
+def _assert_stage_results_equal(got, ref):
+    assert got["text"] == ref["text"] and got["text"]
+    assert got["has_speaker_diarization"] == ref["has_speaker_diarization"]
+    raw, raw_ref = got["speaker_segments_raw"], ref["speaker_segments_raw"]
+    assert len(raw) == len(raw_ref)
+    for g, r in zip(raw, raw_ref):
+        assert (g["speaker"], g["speaker_id"]) == (r["speaker"], r["speaker_id"])
+        for key in ("start", "end", "duration"):
+            assert abs(g[key] - r[key]) <= 1e-6, (key, g, r)
+    ov, ov_ref = got["overlap_segments"], ref["overlap_segments"]
+    assert len(ov) == len(ov_ref)
+    for g, r in zip(ov, ov_ref):
+        assert (g["speaker"], g["speaker_id"], g["text"], g["overlap"]) == \
+            (r["speaker"], r["speaker_id"], r["text"], r["overlap"])
+        assert (g["start"], g["end"]) == (r["start"], r["end"])
+        _assert_words_equal(g["raw_words"], r["raw_words"])
+    assert len(got["segments"]) == len(ref["segments"])
+    for g, r in zip(got["segments"], ref["segments"]):
+        assert g["text"] == r["text"]
+        assert (g.get("speaker"), g.get("speaker_id")) == (r.get("speaker"), r.get("speaker_id"))
+        _assert_words_equal(g["raw_words"], r["raw_words"])
+    assert got["quality_info"] == ref["quality_info"]
+
+
 @pytest.mark.parametrize("config,model_pair", [
     ({"bypass_vad": True, "speaker_diarization": True,
       "speaker_model": "senko_campp"}, False),
@@ -182,23 +279,64 @@ def test_port_imports_never_load_jax():
     ({"bypass_vad": True, "speaker_diarization": True,
       "speaker_model": "senko_campp_optimized"}, True),
     ({"bypass_vad": True, "overlap_separation": True}, True),
+    ({"bypass_vad": True, "speaker_diarization": True, "speaker_model": "senko_campp",
+      "overlap_separation": True, "restore_punctuation": True, "quality_analysis": True},
+     False),
 ])
-def test_unported_stages_raise(config, model_pair):
-    """Stages the port does not have yet raise instead of being skipped:
-    overlap separation, alone or with a ROVER pair, and the Senko CAM++
-    diarization backend, overlapped with the decode or not."""
-    from sherpa_vietnamese_asr_tpu_torch.models.registry import (
-        TINY_ZIPFORMER, random_asr_model,
-    )
-    from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import (
-        TranscriberPipeline,
+def test_unported_stages_raise(config, model_pair, stage_models, stage_assets, tmp_path):
+    """The stages this test once found refused (the Senko CAM++ diarization
+    backend, overlapped with the decode or not, and overlap separation, with
+    diarization, alone, or with a ROVER pair) run in the port and give the
+    JAX TranscriberPipeline's result on the same WAV and weights: speaker
+    segments, overlap segments (the Conv-TasNet streams re-decoded with the
+    first model), segments and words. overlap_separation without
+    speaker_diarization does nothing in either package. The last case runs
+    every stage: Senko diarization, overlap separation, punctuation and
+    quality."""
+    from sherpa_vietnamese_asr_tpu.pipeline.transcriber import (
+        TranscriberPipeline as JaxPipeline,
     )
 
-    m = random_asr_model(vocab_size=20, zip_cfg=TINY_ZIPFORMER, beam_size=2,
-                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        TranscriberPipeline("unused.wav", (m, m) if model_pair else m,
-                            config=config)
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+    from tests.test_torch_diarization import THRESHOLD, diarization_audio
+
+    config = dict(config, max_batch=2, diarization_threshold=THRESHOLD)
+    jm, tm = stage_models["jms"], stage_models["tms"]
+    kw_j, kw_t = {}, {}
+    if config.get("restore_punctuation"):
+        from tests.test_torch_punctuate_path import _jax_stages, _port_stages, _punct_params
+        from tests.test_torch_punctuation import port_vibert
+        from tests.test_torch_quality import jax_dnsmos, port_dnsmos
+
+        dnsmos = jax.tree.map(np.array, jax_dnsmos(24))
+        dnsmos["head"]["bias"] += 3.0
+        stages = {"vibert": _punct_params(), "dnsmos": dnsmos, "port_dnsmos": port_dnsmos(dnsmos)}
+        stages["port_vibert"] = port_vibert(stages["vibert"])
+        none = {"jax": (None,) * 4, "port": (None,) * 2}
+        kw_j = {k: v for k, v in _jax_stages(none, stages, False).items() if v is not None}
+        kw_t = {k: v for k, v in _port_stages(none, stages, False).items() if v is not None}
+    paths = []
+    for name in ("j.wav", "t.wav"):
+        paths.append(str(tmp_path / name))
+        write_wav(paths[-1], diarization_audio(20), 16000)
+    ref = JaxPipeline(paths[0], (jm[0], jm[1]) if model_pair else jm[0], config, **kw_j).run()
+    phases = []
+    got = TranscriberPipeline(paths[1], (tm[0], tm[1]) if model_pair else tm[0], config,
+                              progress_callback=phases.append, **kw_t).run()
+    _assert_stage_results_equal(got, ref)
+    diarized = config.get("speaker_diarization", False)
+    assert got["has_speaker_diarization"] == diarized
+    if diarized:
+        assert len({s["speaker_id"] for s in got["speaker_segments_raw"]}) >= 2
+    if diarized and config.get("overlap_separation"):
+        assert "PHASE:OverlapSep|Done " f"({len(got['overlap_segments'])} parallel segments)|100" \
+            in phases
+        if config.get("speaker_model", "").startswith("senko"):
+            assert {s["speaker_id"] for s in got["overlap_segments"]} == {0, 1}
+    else:
+        assert got["overlap_segments"] == []
+        assert not any(p.startswith("PHASE:OverlapSep") for p in phases)
 
 
 @pytest.mark.parametrize("max_batch", [0, None, -1, "absent", 4, "report"])

@@ -143,7 +143,7 @@ def test_streaming_step_matches_jax_over_consecutive_chunks(f32_setup, left):
     scfg = tzs.StreamingConfig(chunk_frames=32, left_frames=left)
     chunks = _chunks(7, 2, seed=left)
     jstate = jzs.init_streaming_state(jcfg, jscfg, 2)
-    state = tzs.init_streaming_state(enc.cfg, scfg, 2)
+    state = tzs.init_streaming_state(enc.cfg, scfg, 2, device="cpu")
     _assert_state_close(state, jstate, jcfg, "init")
     step = _jax_step(jcfg, jscfg)
     for i, x in enumerate(chunks):
@@ -211,7 +211,7 @@ def test_bf16_streaming_step_matches_jax_without_excess_precision(tmp_path):
     like = jax.eval_shape(lambda k: jz.init_zipformer_params(k, jcfg), jax.random.PRNGKey(0))
     enc = _port_encoder(_tree(ref, "p/", like), jcfg)
     scfg = tzs.StreamingConfig(chunk_frames=32, left_frames=64)
-    state = tzs.init_streaming_state(enc.cfg, scfg, 2)
+    state = tzs.init_streaming_state(enc.cfg, scfg, 2, device="cpu")
     for i, x in enumerate(chunks):
         out, state = tzs.streaming_step(enc, state, torch.from_numpy(x), scfg)
         r = ref[f"out{i}"]
@@ -240,3 +240,17 @@ def test_streaming_embed_chunking_invariant(f32_setup):
         h2, _ = tzs._streaming_embed(enc.encoder_embed, x[:, 64:], tail1, torch.float32)
     np.testing.assert_allclose(torch.cat([h1, h2], dim=1).numpy(), full.numpy(),
                                atol=1e-5, rtol=1e-5)
+
+
+def test_init_streaming_state_defaults_to_the_card():
+    """Like the model constructors, the zero state goes to the card unless
+    the caller names the CPU, and raises on a host without one."""
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import TINY_ZIPFORMER
+
+    cfg = TINY_ZIPFORMER
+    scfg = tzs.StreamingConfig(chunk_frames=16, left_frames=64)
+    state = tzs.init_streaming_state(cfg, scfg, 1, device="cpu")
+    assert state["fbank_tail"].device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tzs.init_streaming_state(cfg, scfg, 1)
