@@ -110,11 +110,26 @@ Phases (any failure raises and the script exits non-zero):
      clusterkit; one _run_overlap_separation on planted 2-speaker segments
      and regions, each stream re-decoded through kernels 1-3; a 100 s
      request with Senko diarization and overlap_separation.
+ 12. serving: a Llama at TinyLlama-1.1B's widths (random, torch.Generator
+     seeded 0) on the card against its CPU twin (logits of a 64-token
+     prompt within 1e-4 of the max, greedy tokens equal up to the first
+     near-tie, TF32 refused; prefill, step and tokens/s against the step's
+     bound); a 2-layer Q8_0 GGUF at those widths loaded onto the card
+     (every tensor the dequantised file's) and the local summarizer
+     generating there as on the CPU; the web service (make_server) on the
+     card with the float32 Zipformer-30M (joiner x 8): a 100 s upload
+     through the queue to "completed" with an in-memory run's words and
+     kernels 1-3 launched by the queued job, a summary generated on the
+     card, two /ws/stream clients with single-stream finals and kernel 1
+     once a fused step, /api/calibration/run with cpu and cuda within
+     tolerance, and warmup_programs cold and warm with every stage timed
+     (then its bfloat16 decode stage: kernel 4 and the hotword beam).
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks), kernel 1 also at the Senko
 (CAMPP_FBANK on the speech regions) and overlap paths' shapes with their
-own launches; the last line is {"ok": true, "device": {...}}.
+own launches, and each kernel's launches on the serving path
+("serving_launches"); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py [--parent DIR]
 """
@@ -3307,6 +3322,589 @@ def phase_senko_overlap(dev, model, tmp):
     return [senko_k1, overlap_k1], senko_launches, overlap_launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+# TinyLlama-1.1B-Chat-v1.0's published config, the shapes config_from_gguf
+# reads for the llama architecture.
+TINYLLAMA = dict(vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
+                 ffn_dim=5632, rope_base=10000.0, rms_eps=1e-5, max_seq=2048)
+LLAMA_LOGIT_GATE = 1e-4  # max |card - CPU| of the logits over the CPU's max |logit|
+LLAMA_PROMPT = 64
+LLAMA_GREEDY = 32  # CPU greedy steps (4.1 GB of weights read a step on the host)
+LLAMA_TIE = 1e-3  # a CPU step whose top-2 logits are closer than this is a near-tie
+LLAMA_STEP_REPS = 20
+GGUF_LAYERS = 2
+SUMMARY_TOKENS = 48  # the summarizer's local generation, card against CPU
+SERVE_SECONDS = 100.0
+WS_SECONDS = 20.0
+SERVE_CONFIG = {"speaker_diarization": False, "punctuation_confidence": 1}  # VAD on
+
+
+def llama_cfg(**kw):
+    from sherpa_vietnamese_asr_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**{**TINYLLAMA, **kw})
+
+
+def llama_bytes(model):
+    """Bytes a decode step must read: every weight once (the tied output
+    reads tok_emb whole; the embedding's one row is not counted apart)."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def greedy_margins(model, prompt, n):
+    """generate()'s greedy loop (its prompt truncation too) with each step's
+    top-2 logit margin."""
+    import torch
+
+    s_max = model.cfg.max_seq
+    if len(prompt) + n > s_max:
+        prompt = prompt[-(s_max - n):]
+    logits, cache = model.prefill(prompt)
+    tokens, margins, pos = [], [], len(prompt)
+    for _ in range(n):
+        top = torch.topk(logits, 2).values
+        margins.append(float(top[0] - top[1]))
+        tokens.append(int(torch.argmax(logits)))
+        logits = model.step(cache, pos, tokens[-1])
+        pos += 1
+    return tokens, margins
+
+
+def tie_compare(label, got, ref, margins):
+    """Tokens must be equal up to the first CPU step with a top-2 margin under
+    LLAMA_TIE; differences after it are counted. Returns that step or None."""
+    tie = next((i for i, m in enumerate(margins) if m < LLAMA_TIE), None)
+    upto = len(ref) if tie is None else tie
+    assert got[:upto] == ref[:upto], \
+        f"{label}: greedy tokens differ before the first near-tie ({got} vs {ref})"
+    after = sum(a != b for a, b in zip(got[upto:], ref[upto:]))
+    log(f"{label}: greedy tokens equal over {upto} of {len(ref)} steps; first near-tie "
+        f"{tie} (min margin {min(margins):.3e}); {after} differ after it")
+    return tie
+
+
+def check_llama(dev):
+    """(a) A TinyLlama-width Llama (random, torch.Generator seeded 0) on the
+    card against its CPU twin: logits of a 64-token prompt, greedy tokens,
+    TF32 refused; prefill, step and tokens/s against the step's bound."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.llama import Llama, generate, random_llama
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import use_full_fp32
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
+
+    cfg = llama_cfg()
+    t0 = time.perf_counter()
+    twin = random_llama(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    t1 = time.perf_counter()
+    model = Llama(cfg, device=dev)
+    model.load_state_dict(twin.state_dict())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = llama_bytes(model)
+    log(f"llama: TinyLlama-1.1B widths, {n_params / 1e9:.4f} B parameters, "
+        f"{weight_bytes / 1e9:.3f} GB float32; random init {t1 - t0:.1f} s, upload "
+        f"{time.perf_counter() - t1:.1f} s")
+    prompt = np.random.default_rng(3).integers(3, cfg.vocab_size, LLAMA_PROMPT)
+
+    ref = twin(prompt)
+    got = model(prompt).cpu()
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    log(f"llama: logits of a {LLAMA_PROMPT}-token prompt, max |card - CPU| {err:.3e} of "
+        f"max |logit| {float(ref.abs().max()):.3f} (gate {LLAMA_LOGIT_GATE})")
+    assert err <= LLAMA_LOGIT_GATE, f"llama logits {err:.3e} over the gate"
+
+    t0 = time.perf_counter()
+    ref_tokens, margins = greedy_margins(twin, prompt, LLAMA_GREEDY)
+    cpu_s = time.perf_counter() - t0
+    card_tokens = generate(model, prompt, max_new_tokens=LLAMA_GREEDY)
+    log(f"llama: CPU greedy {LLAMA_GREEDY} tokens in {cpu_s:.1f} s")
+    tie_compare("llama", card_tokens, ref_tokens, margins)
+    del twin
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        model(prompt)
+        raise AssertionError("llama: ran with TF32 on")
+    except RuntimeError as e:
+        assert "TF32" in str(e), e
+    finally:
+        use_full_fp32()
+    log("llama: refused to run with TF32 on")
+
+    def sync_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    full = np.random.default_rng(4).integers(3, cfg.vocab_size, cfg.max_seq)
+    model.prefill(full[:LLAMA_PROMPT])
+    model.prefill(full)
+    prefill_64 = sync_ms(lambda: model.prefill(full[:LLAMA_PROMPT]), 5)
+    prefill_full = sync_ms(lambda: model.prefill(full), 3)
+    _, cache = model.prefill(full[:LLAMA_PROMPT])
+    pos, tok = LLAMA_PROMPT, int(full[LLAMA_PROMPT])
+    step = sync_ms(lambda: model.step(cache, pos, tok), LLAMA_STEP_REPS)
+    busy, per_name, counts = profile_calls(lambda: model.step(cache, pos, tok), reps=10)
+    ops = sum(counts.values()) / 10
+    bound_ms = weight_bytes / PEAK_BYTES * 1e3
+    # the layers' products at every position, the logits at the last one, and
+    # q.k and attn.v over the whole T x T square (the port masks, not skips)
+    flops_full = (2 * cfg.max_seq * (n_params - cfg.vocab_size * cfg.dim)
+                  + 2 * cfg.dim * cfg.vocab_size + 4 * cfg.n_layers * cfg.max_seq ** 2 * cfg.dim)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:3]
+    log(f"llama: prefill {LLAMA_PROMPT} positions {prefill_64:.2f} ms, {cfg.max_seq} "
+        f"positions {prefill_full:.2f} ms ({flops_full / 1e12:.2f} TFLOP, "
+        f"{flops_full / prefill_full / 1e9:.1f} TFLOP/s); step wall {step:.3f} ms, device "
+        f"busy {busy:.3f} ms, {ops:.0f} device operations, idle share {1 - busy / step:.3f}, "
+        f"{1e3 / step:.1f} tokens/s; step bound {bound_ms:.3f} ms (weights read once at "
+        f"3.35 TB/s), step device time {busy / bound_ms:.2f}x the bound; top: "
+        + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top) + f" ({card()})")
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_64, "prefill_full_ms": prefill_full, "step_ms": step,
+            "step_busy_ms": busy, "bound_ms": bound_ms}
+
+
+def gguf_vocab(n):
+    """A sentencepiece-style vocabulary of n pieces, as tests/test_llama_gguf.py
+    builds one: specials, the 256 byte pieces, a few words, then fillers."""
+    vocab = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)]
+    vocab += ["▁xin", "▁chao", "▁viet", "▁nam", "▁hom", "▁nay", "▁the", "▁a"]
+    vocab += [f"<extra_{i}>" for i in range(len(vocab), n)]
+    return vocab
+
+
+def write_llama_gguf(path, n_layers):
+    """A GGUF at TinyLlama's widths with n_layers layers, every matrix Q8_0,
+    written by the port's writer from a random Llama (seed 1)."""
+    from sherpa_vietnamese_asr_tpu_torch.models import gguf
+    from sherpa_vietnamese_asr_tpu_torch.models.llama import random_llama
+
+    cfg = llama_cfg(n_layers=n_layers)
+    src = random_llama(cfg, seed=1, device="cpu")
+    names = {"attn_norm": "attn_norm", "ffn_norm": "ffn_norm", "wq": "attn_q",
+             "wk": "attn_k", "wv": "attn_v", "wo": "attn_output", "w_gate": "ffn_gate",
+             "w_up": "ffn_up", "w_down": "ffn_down"}
+    t = {"token_embd.weight": src.tok_emb.numpy(), "output_norm.weight": src.out_norm.numpy()}
+    for i, lp in enumerate(src.layers):
+        for attr, name in names.items():
+            w = getattr(lp, attr).numpy()
+            t[f"blk.{i}.{name}.weight"] = w.T if w.ndim == 2 else w  # ggml [out, in]
+    vocab = gguf_vocab(cfg.vocab_size)
+    meta = {"general.architecture": "llama", "general.alignment": 32,
+            "llama.embedding_length": cfg.dim, "llama.block_count": n_layers,
+            "llama.attention.head_count": cfg.n_heads,
+            "llama.attention.head_count_kv": cfg.n_kv_heads,
+            "llama.feed_forward_length": cfg.ffn_dim, "llama.context_length": cfg.max_seq,
+            "llama.rope.freq_base": cfg.rope_base,
+            "llama.attention.layer_norm_rms_epsilon": cfg.rms_eps,
+            "tokenizer.ggml.tokens": vocab,
+            "tokenizer.ggml.scores": [float(-i) for i in range(len(vocab))],
+            "tokenizer.ggml.token_type": [2, 3, 3] + [6] * 256 + [1] * (len(vocab) - 259),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}
+    gguf.write_gguf(path, meta, t, quant_types={k: gguf.GGML_Q8_0 for k, v in t.items()
+                                                 if v.ndim == 2})
+    return cfg
+
+
+def check_gguf(dev, tmp):
+    """(b) The Q8_0 GGUF onto the card (every tensor the dequantised numpy
+    one's) and the local summarizer generating there, equal to the CPU's."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models import gguf
+    from sherpa_vietnamese_asr_tpu_torch.models.llama import (
+        generate,
+        gguf_params,
+        load_gguf_llama,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.web_service import summarizer as sm
+
+    path = os.path.join(tmp, "tinyllama-2layer-q8_0.gguf")
+    t0 = time.perf_counter()
+    cfg = write_llama_gguf(path, GGUF_LAYERS)
+    t1 = time.perf_counter()
+    model, lcfg, tok, meta = load_gguf_llama(path, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # the file keeps the RMS epsilon as float32
+    assert dataclasses.replace(lcfg, rms_eps=cfg.rms_eps) == cfg, lcfg
+    assert abs(lcfg.rms_eps - cfg.rms_eps) < 1e-12 and model.device.type == dev.type
+    want = gguf_params(gguf.read_gguf(path)["tensors"], lcfg)
+    n = 0
+    for name, p in model.named_parameters():
+        leaf = want
+        for key in name.split("."):
+            leaf = leaf[int(key)] if key.isdigit() else leaf[key]
+        assert torch.equal(p.cpu(), torch.from_numpy(np.asarray(leaf))), f"gguf: {name}"
+        n += 1
+    log(f"gguf: {GGUF_LAYERS} layers at TinyLlama widths in Q8_0, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, written in {t1 - t0:.1f} s, loaded onto "
+        f"{model.device} in {t2 - t1:.1f} s; {n} tensors equal to the dequantised file's")
+    del model
+
+    s = sm.Summarizer(gguf_path=path, device=dev)
+    assert s.backend == "local", s.backend
+    prompt = ("Summarize this Vietnamese meeting transcript chunk as JSON with keys "
+              '"title", "summary", "key_points" (list), "action_items" (list):\n\n'
+              + "xin chao viet nam. hom nay hop ve du an moi. " * 20)
+    t0 = time.perf_counter()
+    text = sm._local_generate(prompt, path, max_new_tokens=SUMMARY_TOKENS, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu_text = sm._local_generate(prompt, path, max_new_tokens=SUMMARY_TOKENS, device="cpu")
+    card_model, _, tok, meta = sm._local_llm(path, dev)
+    cpu_model = sm._local_llm(path, "cpu")[0]
+    assert card_model.device.type == dev.type
+    ids = [int(meta["tokenizer.ggml.bos_token_id"])] + tok.encode(prompt)
+    ref, margins = greedy_margins(cpu_model, ids, SUMMARY_TOKENS)
+    got = generate(card_model, ids, max_new_tokens=SUMMARY_TOKENS)
+    eos = int(meta["tokenizer.ggml.eos_token_id"])
+    ref_cut = ref[: ref.index(eos)] if eos in ref else ref
+    tie = tie_compare("gguf summarizer", got, ref_cut, margins[: len(ref_cut)])
+    if tie is None:
+        assert text == cpu_text, "gguf summarizer: the card's text is not the CPU's"
+    log(f"gguf summarizer: backend local on {card_model.device}, {len(ids)} prompt tokens, "
+        f"{len(got)} generated, card {card_s:.2f} s (first call, load included), text "
+        f"equal to the CPU's: {text == cpu_text} ({card()})")
+    sm._LOCAL_LLM.pop((path, "cpu"), None)
+    return path
+
+
+class Serving:
+    """The port's web service on the card, driven over urllib and raw
+    websocket frames from this process."""
+
+    def __init__(self, dev, model, tmp):
+        import threading
+
+        from sherpa_vietnamese_asr_tpu_torch.web_service.server import make_server
+
+        self.server, self.state = make_server(port=0, use_tls=False,
+                                              data_dir=os.path.join(tmp, "web"),
+                                              model_provider=lambda name: model, device=dev)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.state.shutdown()
+        self.thread.join(timeout=30)
+
+    def req(self, path, method="GET", body=None, headers=None, raw=None, timeout=600):
+        import urllib.error
+        import urllib.request
+
+        headers = dict(headers or {})
+        data = raw
+        if body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        r = urllib.request.Request(self.base + path, data=data, method=method, headers=headers)
+        try:
+            with urllib.request.urlopen(r, timeout=timeout) as resp:
+                return resp.status, json.loads(resp.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode())
+
+    def ws_stream(self, pcm, piece):
+        """A /ws/stream client: (partials, final)."""
+        import base64
+        import socket
+        import struct
+
+        host, port = self.base.replace("http://", "").split(":")
+        sock = socket.create_connection((host, int(port)), timeout=300)
+        key = base64.b64encode(os.urandom(16)).decode()
+        sock.sendall((f"GET /ws/stream HTTP/1.1\r\nHost: {host}\r\nUpgrade: websocket\r\n"
+                      f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                      "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            buf += sock.recv(1)
+        assert b"101" in buf.split(b"\r\n", 1)[0], buf
+
+        def frame(payload, opcode):
+            mask = os.urandom(4)
+            n = len(payload)
+            head = bytes([0x80 | opcode])
+            head += bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + struct.pack(">H", n)
+            body = (np.frombuffer(payload, np.uint8)
+                    ^ np.resize(np.frombuffer(mask, np.uint8), n)).tobytes()
+            return head + mask + body
+
+        def read():
+            head = b""
+            while len(head) < 2:
+                head += sock.recv(2 - len(head))
+            ln = head[1] & 0x7F
+            if ln == 126:
+                ln = struct.unpack(">H", sock.recv(2))[0]
+            data = b""
+            while len(data) < ln:
+                data += sock.recv(ln - len(data))
+            return json.loads(data)
+
+        try:
+            assert read()["type"] == "ready"
+            for off in range(0, len(pcm), piece):
+                sock.sendall(frame(pcm[off: off + piece].tobytes(), 0x2))
+            sock.sendall(frame(b"", 0x8))
+            partials = []
+            while True:
+                m = read()
+                assert m["type"] in ("partial", "final"), m
+                if m["type"] == "partial":
+                    partials.append(m["text"])
+                else:
+                    return partials, m["text"]
+        finally:
+            sock.close()
+
+
+def serve_request(srv, model, tmp):
+    """Upload 100 s, process through the queue (kernels 1-3 counted while it
+    runs), poll until completed; the stored words must be an in-memory
+    TranscriberPipeline run's over the same config and model."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.asr_json import serialize_segments
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import write_wav
+
+    path = os.path.join(tmp, "serve_100s.wav")
+    write_wav(path, default_path_audio(), SR)
+    with open(path, "rb") as f:
+        wav = f.read()
+    _, s = srv.req("/api/session", "POST")
+    h = {"X-Session-Id": s["session_id"]}
+    status, up = srv.req("/api/upload", "POST", headers={**h, "X-Filename": "meeting.wav"},
+                         raw=wav)
+    assert status == 200, up
+    fid = up["file_id"]
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    status, pr = srv.req(f"/api/process/{fid}", "POST", body=SERVE_CONFIG, headers=h)
+    assert status == 200, pr
+    while True:
+        _, st = srv.req(f"/api/files/{fid}/status", headers=h)
+        assert st["status"] != "error", f"queued job failed: {st}"
+        if st["status"] == "completed":
+            break
+        assert time.perf_counter() - t0 < 600, f"queued job stuck: {st}"
+        time.sleep(0.02)
+    wall = time.perf_counter() - t0
+    launches = {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+                "beam_search": beam_search_cuda.launches}
+    assert all(n > 0 for n in launches.values()), f"queue: a kernel did not run {launches}"
+    stored = json.loads(srv.state.db.get_file(fid)["asr_result_json"])
+    status, res = srv.req(f"/api/files/{fid}/result", headers=h)
+    assert status == 200
+    cfg = srv.state.queue._build_pipeline_config(SERVE_CONFIG)
+    ref = TranscriberPipeline(path, model, cfg).run()
+    torch.cuda.synchronize()
+    ref_json = serialize_segments(ref["segments"], duration_sec=ref["duration_sec"])
+
+    def words(segs):
+        return [(w["text"], w.get("start"), w.get("end")) for seg in segs
+                if seg["type"] == "text" for w in seg.get("raw_words", [])]
+
+    got_words, ref_words = words(stored["segments"]), words(ref_json["segments"])
+    assert got_words == ref_words and got_words, "queue: words differ from the in-memory run"
+    assert stored["text"] == ref["text"] == res["result"]["text"]
+    log(f"serve: queued {SERVE_SECONDS:.0f} s upload completed, process -> completed "
+        f"{wall:.3f} s wall, {len(got_words)} words equal to the in-memory run's, timing "
+        f"{ {k: round(v, 3) for k, v in stored['timing'].items()} }, launches {launches} "
+        f"({card()})")
+    return fid, h, launches
+
+
+def serve_summary(srv, fid, h, gguf_path):
+    """POST /api/files/{id}/summarize with SVT_SUMMARIZER_GGUF at (b)'s file:
+    generation must run on the card (the port's generate counted)."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models import llama
+
+    calls, tokens, inner = [], [], llama.generate
+
+    def counted(model, prompt_ids, *a, **k):
+        out = inner(model, prompt_ids, *a, **k)
+        calls.append((model.device.type, len(prompt_ids)))
+        tokens.append(len(out))
+        return out
+
+    os.environ["SVT_SUMMARIZER_GGUF"] = gguf_path
+    llama.generate = counted
+    try:
+        t0 = time.perf_counter()
+        status, out = srv.req(f"/api/files/{fid}/summarize", "POST", body={}, headers=h)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        llama.generate = inner
+        del os.environ["SVT_SUMMARIZER_GGUF"]
+    assert status == 200, out
+    assert set(out["summary"]) == {"title", "summary", "key_points", "action_items"}
+    assert calls and all(d == srv.state.device.type for d, _ in calls), \
+        f"summarize: generate ran on {calls}"
+    log(f"serve: summarize {wall:.3f} s wall, generate called {len(calls)} times on the card "
+        f"(prompt tokens {[n for _, n in calls]}), {sum(tokens)} tokens generated "
+        f"({sum(tokens) / wall:.1f} tokens/s of request wall) ({card()})")
+
+
+def serve_streams(srv, model):
+    """Two /ws/stream clients of 20 s each in 0.1 s frames at once: finals
+    equal single-stream recognizers' on the card, kernel 1 once a step."""
+    import threading
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.streaming_online import _pieces_text
+
+    audios = [a[: int(WS_SECONDS * SR)] for a in stream_audio()[:2]]
+    refs = [_pieces_text(model, single_stream(model, a)) for a in audios]
+    streamer = srv.state.get_streamer()
+    inner, walls = streamer._step, []
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = inner(*args)
+        out[2].cpu()
+        walls.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    streamer._step = timed
+    fbank.launches = 0
+    results, errors = [None, None], []
+
+    def client(i):
+        try:
+            pcm = np.clip(np.rint(audios[i] * 32768), -32768, 32767).astype(np.int16)
+            results[i] = srv.ws_stream(pcm, STREAM_PIECE)
+        except Exception as e:  # reported below, the phase fails
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    streamer._step = inner
+    assert not errors and all(r is not None for r in results), f"ws clients: {errors}"
+    assert len(walls) == fbank.launches > 0, \
+        f"ws: kernel 1 {fbank.launches} launches in {len(walls)} fused steps"
+    for i, ((partials, final), ref) in enumerate(zip(results, refs)):
+        assert final == ref, f"ws stream {i}: final differs from the single-stream recognizer"
+        assert partials, f"ws stream {i}: no partial"
+    log(f"serve: 2 websocket streams of {WS_SECONDS:.0f} s in 0.1 s frames, {wall:.2f} s "
+        f"wall, finals equal single-stream recognizers ({len(refs[0].split())} and "
+        f"{len(refs[1].split())} words, {len(results[0][0])} and {len(results[1][0])} "
+        f"partials); {len(walls)} fused steps, kernel 1 {fbank.launches} launches, step "
+        f"wall median {np.median(walls):.3f} ms (min {min(walls):.3f}) ({card()})")
+    return fbank.launches
+
+
+def serve_calibration(srv):
+    """POST /api/calibration/run: cpu and cuda for each stage, within
+    STAGE_TOLERANCES."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.calibration import within_tolerance
+
+    t0 = time.perf_counter()
+    status, rep = srv.req("/api/calibration/run", "POST", body={})
+    wall = time.perf_counter() - t0
+    assert status == 200, rep
+    assert set(rep["devices"]) == {"cpu", "cuda"}, rep["devices"]
+    for name, e in rep["stages"].items():
+        assert "time_sec" in e.get("cpu", {}) and "time_sec" in e.get("cuda", {}), (name, e)
+        assert within_tolerance(e["diff"], name), (name, e["diff"])
+    log(f"serve: calibration {wall:.1f} s wall, devices {rep['devices']}: " + "; ".join(
+        f"{n} cpu {e['cpu']['time_sec']:.4f} s cuda {e['cuda']['time_sec']:.4f} s speedup "
+        f"{e['speedup']} max_abs {e['diff']['max_abs']:.2e} rel_l2 {e['diff']['rel_l2']:.2e}"
+        for n, e in rep["stages"].items()) + f"; accepted {rep['accelerated_stages']} "
+        f"({card()})")
+
+
+def warmup_dir(tmp):
+    """Diarization and ViBERT files written by the port's exporters from
+    random full-width models, for warmup's models_dir."""
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_aux import export_vibert_files
+    from sherpa_vietnamese_asr_tpu_torch.models.onnx_export_diar import (
+        export_diarization_files,
+    )
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import random_pyannet
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import random_resnet_speaker
+    from sherpa_vietnamese_asr_tpu_torch.models.vibert import random_vibert
+
+    d = os.path.join(tmp, "warmup-models")
+    os.makedirs(d, exist_ok=True)
+    export_diarization_files(random_pyannet(seed=0, device="cpu"),
+                             random_resnet_speaker(seed=1, device="cpu"), d)
+    export_vibert_files(random_vibert(seed=0, device="cpu"), gec_vocab(), d)
+    return d
+
+
+def serve_warmup(srv, model, model16, tmp):
+    """warmup_programs on the server's model and streamer, cold then warm:
+    every stage returns a time; then the bfloat16 decode stage (kernel 4)."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search_cuda, encoder_layer
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.warmup import STAGES, warmup_programs
+
+    d = warmup_dir(tmp)
+    runs = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        timings = warmup_programs(model, models_dir=d, log=lambda m: None,
+                                  streamer=srv.state.get_streamer())
+        runs.append(time.perf_counter() - t0)
+        assert list(timings) == list(STAGES) and all(v is not None for v in timings.values()), \
+            f"warmup ({label}): a stage returned None: {timings}"
+        log(f"serve: warmup {label} {runs[-1]:.2f} s: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in timings.items()) + f" ({card()})")
+    encoder_layer.launches = beam_search_cuda.hotword_launches = 0
+    timings = warmup_programs(model16, stages=("decode",), log=lambda m: None)
+    assert timings["decode"] is not None
+    launches = {"encoder_layer_bf16": encoder_layer.launches,
+                "beam_search_hotwords": beam_search_cuda.hotword_launches}
+    assert all(n > 0 for n in launches.values()), f"bf16 warmup: {launches}"
+    log(f"serve: warmup --dtype bfloat16 decode {timings['decode']:.3f} s, launches {launches}")
+    return launches
+
+
+def phase_serving(dev, model, model16, tmp):
+    """(a) the 1.1 B Llama against its CPU twin, (b) the Q8_0 GGUF and the
+    local summarizer, (c) the web service: a queued request, a summary, two
+    live streams, a calibration and warmup. Returns each kernel's launches
+    on the serving path."""
+    t0 = time.perf_counter()
+    check_llama(dev)
+    gguf_path = check_gguf(dev, tmp)
+    sharp = sharp_copy(model)  # near-ties between 8-slot and single-stream steps
+    srv = Serving(dev, sharp, tmp)
+    try:
+        fid, h, launches = serve_request(srv, sharp, tmp)
+        serve_summary(srv, fid, h, gguf_path)
+        serve_streams(srv, sharp)
+        serve_calibration(srv)
+        launches.update(serve_warmup(srv, sharp, model16, tmp))
+    finally:
+        srv.close()
+    log(f"serving phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -3367,6 +3965,9 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         senko_kernels, launches_senko, launches_overlap = phase_senko_overlap(dev, model, tmp)
     log("PHASE senko and overlap ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_serving = phase_serving(dev, model, model16, tmp)
+    log("PHASE serving ok")
     paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
              launches_punct, launches_stream, launches_senko, launches_overlap)
     for k in kernels:  # each kernel's count from the first path that runs it
@@ -3374,8 +3975,10 @@ def main(argv=None):
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)
     kernels += senko_kernels  # kernel 1 on the Senko and overlap paths, counted there
     assert all(k["launches"] > 0 for k in kernels), "a kernel ran on no path"
+    for k in kernels:  # launches on the serving path (phase 12), counted there
+        k["serving_launches"] = launches_serving.get(k["name"], 0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms")
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "serving_launches")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
 # Command-line interface of the port.
 #
-# Port of sherpa_vietnamese_asr_tpu/cli.py's `transcribe` subcommand
-# (_load_model, cmd_transcribe and their arguments):
+# Port of sherpa_vietnamese_asr_tpu/cli.py's `transcribe`, `serve`,
+# `warmup` and `calibrate` subcommands (their functions and arguments):
 #
 #   python -m sherpa_vietnamese_asr_tpu_torch.cli transcribe <audio>
 #       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad]
 #       [--diarize [--num-speakers N]] [--punctuate] [--quality] ...
 #       -> prints the text, writes <audio>.asr.json
+#   ... serve [--host H] [--port P] [--data-dir DIR] [--warmup] [--http]
+#       -> the web service (web_service/server.py): uploads through the
+#          queue, /ws/stream live captions, summaries, calibration
+#   ... warmup [--stages a,b] -> pipeline/warmup.py, each stage once
+#   ... calibrate [--autotune] [--full] -> calibration_report.json
 #
-# It runs on the card unless --device cpu is given; without a card the
+# Each runs on the card unless --device cpu is given; without a card the
 # default raises. --diarize runs the pure pyannote-Community-1 diarizer
 # (pipeline/diarization_pure.PureDiarizer) on the same device, its models
 # from the --model directory when it holds them. --punctuate restores
@@ -16,16 +21,18 @@
 # vibert-capu.onnx and vocab.txt from the --model directory when it holds
 # them; --quality adds DNSMOS (pipeline/quality.QualityAnalyzer), from the
 # asset registry; both run on the same device, with loudly flagged random
-# weights when no checkpoint is found, as in the JAX CLI. The other
-# subcommands of the reference (serve, warmup, calibrate, ...) are not
-# ported yet.
+# weights when no checkpoint is found, as in the JAX CLI. `serve` loads its
+# models in float32, as the JAX CLI does. The reference's other subcommands
+# (bench, monitor, install-service, verify-assets) are not ported yet.
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
+import threading
 import time
 
 
@@ -159,6 +166,117 @@ def cmd_transcribe(args):
     return 0
 
 
+def cmd_serve(args):
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import MODEL_30M, model_device
+    from sherpa_vietnamese_asr_tpu_torch.web_service.server import make_server
+
+    device = model_device(args.device)
+    models = {}
+    lock = threading.Lock()
+
+    def model_provider(name):
+        key = name or MODEL_30M
+        with lock:  # the queue worker and the websocket handlers both ask
+            if key not in models:
+                ns = argparse.Namespace(model=key, beam=8, dtype="float32",
+                                        device=device,
+                                        allow_random=args.allow_random,
+                                        models_dir=args.models_dir)
+                models[key] = _load_model(ns)
+            return models[key]
+
+    # --http forces plain HTTP; otherwise the persisted server config
+    # decides (http_mode, reference default: HTTPS with a self-signed cert)
+    server, state = make_server(host=args.host, port=args.port,
+                                data_dir=args.data_dir,
+                                model_provider=model_provider,
+                                use_tls=False if args.http else None,
+                                device=device)
+    if args.warmup:
+        from sherpa_vietnamese_asr_tpu_torch.pipeline.warmup import warmup_programs
+
+        t0 = time.time()
+        print("[serve] warmup: decode, streaming, diarization, punctuation...")
+        warmup_programs(model_provider(None), models_dir=args.models_dir,
+                        stages=("decode", "streaming", "diarization",
+                                "punctuation"),
+                        log=lambda m: print(f"[serve] {m}"),
+                        streamer=state.get_streamer())
+        print(f"[serve] warmup done in {time.time() - t0:.0f}s")
+    scheme = "https" if getattr(state, "tls_active", False) else "http"
+    print(f"[serve] listening on {scheme}://{args.host}:"
+          f"{server.server_address[1]}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        state.shutdown()
+    return 0
+
+
+def cmd_warmup(args):
+    """Each serving stage once on the card (pipeline/warmup.py), so that a
+    later request finds the kernel library built and the libraries'
+    first-use costs paid."""
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.warmup import STAGES, warmup_programs
+
+    stages = tuple(args.stages.split(",")) if args.stages else STAGES
+    t0 = time.time()
+    model = _load_model(args)
+    timings = warmup_programs(model, models_dir=args.models_dir,
+                              stages=stages, jobs=args.jobs)
+    done = [k for k, v in timings.items() if v is not None]
+    print(f"[warmup] {len(done)}/{len(timings)} stages ran "
+          f"({', '.join(done)}) in {time.time() - t0:.0f}s on {model.device}")
+    return 0
+
+
+def cmd_calibrate(args):
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import model_device
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.calibration import (
+        auto_batch_size,
+        autotune_max_batch,
+        run_device_calibration,
+        run_full_pipeline_calibration,
+    )
+
+    device = model_device(args.device)
+    report = run_device_calibration(progress_callback=print)
+    if args.full:
+        # Reference-style end-to-end compare: one real pipeline run on the
+        # device and one on the CPU (core/calibration.py:1395-1560).
+        report["full_pipeline"] = run_full_pipeline_calibration(
+            minutes=args.full_minutes,
+            confidence_tol=args.confidence_tol,
+            progress_callback=print, device=device)
+    if args.autotune:
+        # Reference batch autotune (core/calibration.py:968) + memory-aware
+        # sizing (hardware_accel.py:639-678) over the card's free memory.
+        cands = tuple(int(x) for x in args.candidates.split(","))
+        tune = autotune_max_batch(candidates=cands, progress_callback=print,
+                                  device=device)
+        report["batch_autotune"] = tune
+        report["recommended"] = {
+            "max_batch": tune["best_batch"]
+            or auto_batch_size("decode", 8, device=device),
+            "embedding_batch": auto_batch_size("embedding", 16, device=device),
+            "vibert_batch": auto_batch_size("vibert", 16, device=device),
+            "campp_batch": auto_batch_size("campp", 32, device=device),
+        }
+    with open(args.output, "w", encoding="utf-8") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps({k: v for k, v in report.items() if k != "stages"}))
+    print(f"wrote {args.output}")
+    return 0
+
+
+def _device_arg(parser):
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; the default needs a card, 'cpu' "
+                             "runs every kernel's plain PyTorch twin")
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="svt-torch",
@@ -174,9 +292,7 @@ def build_parser():
                    choices=["float32", "bfloat16"],
                    help="encoder compute dtype; bfloat16 transcripts are "
                         "not bit-identical to float32")
-    t.add_argument("--device", default="cuda",
-                   help="torch device; the default needs a card, 'cpu' "
-                        "runs every kernel's plain PyTorch twin")
+    _device_arg(t)
     t.add_argument("--rover", action="store_true")
     t.add_argument("--diarize", action="store_true")
     t.add_argument("--num-speakers", type=int, default=0)
@@ -205,6 +321,63 @@ def build_parser():
                         "found (output is garbage; tests/benchmarks only)")
     t.add_argument("-v", "--verbose", action="store_true")
     t.set_defaults(fn=cmd_transcribe)
+
+    s = sub.add_parser("serve", help="run the HTTP API server")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--data-dir", default="web_data")
+    s.add_argument("--warmup", action="store_true",
+                   help="run the decode, streaming, diarization and "
+                        "punctuation stages once before accepting requests")
+    s.add_argument("--http", action="store_true",
+                   help="plain HTTP (default: TLS with a self-signed cert "
+                        "unless server config sets http_mode=1)")
+    s.add_argument("--models-dir", default=None)
+    s.add_argument("--allow-random", action="store_true",
+                   help="permit RANDOM-weight models (garbage output; "
+                        "tests/benchmarks only)")
+    _device_arg(s)
+    s.set_defaults(fn=cmd_serve)
+
+    w = sub.add_parser(
+        "warmup",
+        help="run every serving stage once (builds the kernel library and "
+             "pays the libraries' first-use costs)")
+    w.add_argument("--model", default="zipformer-30m-rnnt-6000h")
+    w.add_argument("--beam", type=int, default=8)
+    w.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    w.add_argument("--models-dir", default=None)
+    w.add_argument("--allow-random", action="store_true",
+                   help="warm with random weights when no checkpoints "
+                        "exist")
+    w.add_argument("--stages", default=None,
+                   help="comma-separated subset of: decode,vad,streaming,"
+                        "diarization,punctuation,quality,senko")
+    w.add_argument("--jobs", type=int, default=1,
+                   help="stages run concurrently on a thread pool; they "
+                        "share one card, so 1 (sequential) is the default")
+    _device_arg(w)
+    w.set_defaults(fn=cmd_warmup)
+
+    c = sub.add_parser("calibrate", help="device calibration report")
+    c.add_argument("--output", default="calibration_report.json")
+    c.add_argument("--autotune", action="store_true",
+                   help="time decode batch sizes and emit recommended "
+                        "max_batch per stage")
+    c.add_argument("--candidates", default="8,16,32,48,64,96",
+                   help="comma-separated batch sizes to time")
+    c.add_argument("--full", action="store_true",
+                   help="also run the full pipeline on the device and on "
+                        "the CPU on a synthetic 10-min sample and compare "
+                        "wall/stage speedups + output parity (reference "
+                        "core/calibration.py:1395-1560)")
+    c.add_argument("--full-minutes", type=float, default=10.0)
+    c.add_argument("--confidence-tol", type=float, default=1e-4,
+                   help="asr_confidence parity gate (reference default "
+                        "1e-4; widen for random-weight rehearsals)")
+    _device_arg(c)
+    c.set_defaults(fn=cmd_calibrate)
     return p
 
 

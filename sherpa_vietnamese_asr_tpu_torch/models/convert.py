@@ -9,7 +9,8 @@
 # models/resnet_speaker.ResNetSpeaker, the ViBERT tree, float32 or int8, into
 # models/vibert.ViBert, the DNSMOS tree into models/dnsmos.Dnsmos, and the
 # CAM++ and Conv-TasNet trees into models/campplus.Campp and
-# models/convtasnet.ConvTasNet) with
+# models/convtasnet.ConvTasNet, the summarizer's Llama tree into
+# models/llama.Llama) with
 # every layout change done here, so the same weights run through both
 # packages. A streaming Zipformer state of the JAX package converts too
 # (streaming_state_from_numpy), so both packages can go on from one
@@ -28,6 +29,7 @@ from sherpa_vietnamese_asr_tpu_torch.models.registry import (
 from sherpa_vietnamese_asr_tpu_torch.models.campplus import Campp, CamppConfig
 from sherpa_vietnamese_asr_tpu_torch.models.convtasnet import ConvTasNet, ConvTasNetConfig
 from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import Dnsmos, DnsmosConfig
+from sherpa_vietnamese_asr_tpu_torch.models.llama import Llama, LlamaConfig
 from sherpa_vietnamese_asr_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
 from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
     ResNetSpeaker,
@@ -441,3 +443,23 @@ def convtasnet_from_numpy(state, cfg: ConvTasNetConfig, device="cuda") -> ConvTa
     model = ConvTasNet(cfg)
     _load(model, state)
     return model.to(device)
+
+
+def llama_from_numpy(params, cfg: LlamaConfig, device="cuda") -> Llama:
+    """A Llama on `device`, the card by default (raises without one), from
+    the JAX package's tree of numpy arrays (init_llama_params mapped through
+    np.asarray, or models/llama.gguf_params): its names and [d_in, d_out]
+    layouts are the module's own; "output": None keeps the projection tied
+    to tok_emb."""
+    model = Llama(cfg, device=model_device(device))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = params
+            for key in name.split("."):
+                leaf = leaf[int(key)] if key.isdigit() else leaf[key]
+            p.copy_(torch.from_numpy(np.array(leaf, np.float32)))
+        if params.get("output") is not None:
+            model.output = torch.nn.Parameter(
+                torch.from_numpy(np.array(params["output"], np.float32)).to(model.device),
+                requires_grad=False)
+    return model.to(model.device)

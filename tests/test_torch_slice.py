@@ -165,6 +165,10 @@ def test_port_imports_never_load_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
+        "new = {'models.gguf', 'models.llama', 'pipeline.warmup', 'web_service.auth', "
+        "'web_service.database', 'web_service.queue_manager', 'web_service.server', "
+        "'web_service.server_config', 'web_service.ssl_utils', 'web_service.summarizer'}\n"
+        "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'sherpa_vietnamese_asr_tpu.')) or "
         "m == 'sherpa_vietnamese_asr_tpu')\n"
