@@ -124,12 +124,25 @@ Phases (any failure raises and the script exits non-zero):
      once a fused step, /api/calibration/run with cpu and cuda within
      tolerance, and warmup_programs cold and warm with every stage timed
      (then its bfloat16 decode stage: kernel 4 and the hotword beam).
+ 13. verify assets: full-width stand-ins of every asset written under their
+     MANIFEST names (tools/rehearsal_assets: the float32 Zipformer-30M and
+     68M, joiners x 8, as executable exports at 96 frames; the streaming
+     30M; PyanNet, ResNet34 with its split files, a seeded PLDA, CAM++,
+     Silero, Conv-TasNet, ViBERT and DNSMOS from one torch.Generator seeded
+     0), the MANIFEST re-pinned to their SHA-256, and `cli verify-assets
+     --json --device cuda` in process: ok, every asset verified or partial,
+     no skip but the JAX package's own, kernels 2 and 3 launched; each exec
+     row's max_abs / rel_l2; models/golden.run_torch_stack on the card
+     against run_exec_stack on the same export (tokens that differ, held to
+     the host CPU's count); the native audiokit built, and a 44.1 kHz
+     stereo WAV through load_audio against the pure-numpy path.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the least time the card could take for the same work, from this
 run's shapes and the card's published peaks), kernel 1 also at the Senko
 (CAMPP_FBANK on the speech regions) and overlap paths' shapes with their
 own launches, and each kernel's launches on the serving path
-("serving_launches"); the last line is {"ok": true, "device": {...}}.
+("serving_launches") and on the verify-assets path ("verify_launches");
+the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py [--parent DIR]
 """
@@ -3905,6 +3918,207 @@ def phase_serving(dev, model, model16, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+REHEARSAL_T_IN = 96  # the executable encoder export's frames (verify_assets probes 96)
+REHEARSAL_SAMPLES = REHEARSAL_T_IN * 160  # golden audio giving 96 fbank frames (snip_edges off)
+# The skips models/verify_assets takes over from the JAX package, word for word.
+JAX_SKIPS = ("skipped: weight-only export (no executable graph)",
+             "skipped: stateful streaming graph exec not wired; offline twin covers "
+             "tensor parity",
+             "skipped: stateful If/LSTM streaming graph exec not wired; importer "
+             "oracle-tested vs torch")
+NATIVE_RESAMPLE_GATE = 5e-3  # tests/test_native.py: audiokit against resample_poly, interior
+NATIVE_WAV_SECONDS = 0.25  # resample_poly convolves at 160 x 44.1 kHz: about 30 s of host time a second
+
+
+def rehearsal_models(model, model68):
+    """The stand-in of every asset: the float32 Zipformer-30M and 68M
+    sharpened (joiner x AUTO_SHARPEN, against near-tied beam steps of random
+    weights), the streaming 30M, and full-width PyanNet, ResNet34, CAM++,
+    Silero, Conv-TasNet, ViBERT (vocab 62,000) and DNSMOS from one CPU
+    torch.Generator seeded 0, with a seeded PLDA."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.campplus import random_campp
+    from sherpa_vietnamese_asr_tpu_torch.models.convtasnet import random_convtasnet
+    from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import random_dnsmos
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import random_pyannet
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import random_resnet_speaker
+    from sherpa_vietnamese_asr_tpu_torch.models.silero_vad import random_silero_vad
+    from sherpa_vietnamese_asr_tpu_torch.models.vibert import random_vibert
+    from sherpa_vietnamese_asr_tpu_torch.tools.rehearsal_assets import random_plda
+
+    gen = torch.Generator().manual_seed(0)
+    vibert = random_vibert(device="cpu", generator=gen)
+    vocab = gec_vocab()
+    vocab += [f"##x{i}" for i in range(vibert.cfg.vocab_size - len(vocab))]
+    return {"zipformer-30m": sharp_copy(model), "zipformer-68m": sharp_copy(model68),
+            "zipformer-30m-streaming": model,
+            "vibert-capu": (vibert, vocab),
+            "segmentation": random_pyannet(device="cpu", generator=gen),
+            "embedding-split": random_resnet_speaker(device="cpu", generator=gen),
+            "plda": random_plda(seed=0),
+            "campp": random_campp(device="cpu", generator=gen),
+            "silero-vad": random_silero_vad(device="cpu", generator=gen),
+            "convtasnet": random_convtasnet(device="cpu", generator=gen),
+            "dnsmos": random_dnsmos(device="cpu", generator=gen)}
+
+
+def kernel_counts():
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+
+    return {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+            "beam_search": beam_search_cuda.launches}
+
+
+def zero_counts():
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, fbank
+
+    for mod in (fbank, attention, beam_search_cuda):
+        mod.launches = 0
+
+
+def verify_assets_cli(tmp):
+    """`cli verify-assets --json --device cuda` in process over the written
+    assets: ok, every asset verified or partial, no skip but JAX's own, each
+    exec row printed. Returns (report, launches of the run)."""
+    rc, out, err = run_cli(["verify-assets", "--json", "--device", "cuda"])
+    report = json.loads(out)
+    from sherpa_vietnamese_asr_tpu_torch.models.verify_assets import format_report
+
+    for line in format_report(report).splitlines():
+        if ".exec" in line or "tokens." in line or line[:1] != " ":
+            log(f"verify-assets: {line.strip()}")
+    assert rc == 0 and report["ok"] is True, f"verify-assets rc {rc}:\n{out[-4000:]}{err[-2000:]}"
+    for key, r in report["assets"].items():
+        assert r["status"] in ("verified", "partial"), f"{key}: {r['status']}"
+        for c in r["checks"]:
+            assert c["ok"] is not False, f"{key}: {c}"
+            if c["ok"] is None:
+                assert c["detail"] in JAX_SKIPS, f"{key}: a skip of its own: {c}"
+    return report
+
+
+def golden_stacks(dev, sharp, model_dir):
+    """run_torch_stack on the card against run_exec_stack on the same
+    executable export (REHEARSAL_T_IN frames of the golden audio), and the
+    same torch stack on the host CPU against it: the tokens that differ on
+    each, and the encoder outputs' largest difference."""
+    import copy
+
+    from sherpa_vietnamese_asr_tpu_torch.models import golden
+    from sherpa_vietnamese_asr_tpu_torch.models.registry import with_pos_dtype
+
+    sharp = with_pos_dtype(sharp, "float32")  # the golden model's setting (the CPU twin reads it)
+    audio = golden.golden_audio()[:REHEARSAL_SAMPLES]
+    t0 = time.perf_counter()
+    ref_tokens, _, ref_enc, ref_feats = golden.run_exec_stack(sharp, audio, model_dir)
+    t1 = time.perf_counter()
+    zero_counts()
+    tokens, _, enc, feats = golden.run_torch_stack(sharp, audio)
+    launches = kernel_counts()
+    t2 = time.perf_counter()
+    cpu_tokens, _, cpu_enc, _ = golden.run_torch_stack(copy.deepcopy(sharp).to("cpu"), audio)
+    assert feats.shape == ref_feats.shape == (REHEARSAL_T_IN, 80)
+    assert enc.shape == ref_enc.shape and np.isfinite(enc).all()
+
+    def differ(a, b):
+        return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+
+    n_card, n_cpu = differ(tokens, ref_tokens), differ(cpu_tokens, ref_tokens)
+    log(f"golden stacks: exec stack (numpy fbank, graph executor, oracle beam 8) "
+        f"{t1 - t0:.2f} s, {len(ref_tokens)} tokens; torch stack on {dev} "
+        f"{(t2 - t1) * 1e3:.1f} ms, {n_card} tokens differ; on the host CPU {n_cpu} differ; "
+        f"fbank max |card - numpy| {np.abs(feats - ref_feats).max():.3e}, encoder max "
+        f"|card - exec| {np.abs(enc - ref_enc).max():.3e} (CPU {np.abs(cpu_enc - ref_enc).max():.3e}) "
+        f"of max |exec| {np.abs(ref_enc).max():.3f}; launches {launches}")
+    assert n_card <= n_cpu, f"golden stacks: {n_card} tokens differ on the card, {n_cpu} on the CPU"
+    assert all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}"
+    return launches
+
+
+def audiokit_wav(tmp):
+    """get_audiokit() loaded; a 44.1 kHz stereo WAV through load_audio's
+    native path against the pure-numpy reader and resampler."""
+    from sherpa_vietnamese_asr_tpu_torch.utils import native
+    from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import (
+        load_audio,
+        read_wav,
+        resample_poly,
+        write_wav,
+    )
+
+    t0 = time.perf_counter()
+    lib = native.get_audiokit()
+    assert lib is not None, "the native audiokit did not build"
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    sr = 44100
+    x = speechlike(rng, int(NATIVE_WAV_SECONDS * sr))
+    stereo = np.stack([x, 0.5 * x], axis=1) * 2.0  # peak over 0.5: no normalisation
+    path = os.path.join(tmp, "stereo_44k.wav")
+    write_wav(path, stereo, sr)
+    decoded, rate = native.wav_decode_native(path)
+    ref, _ = read_wav(path)
+    decode_err = float(np.abs(decoded - ref.mean(axis=1)).max())
+    t0 = time.perf_counter()
+    got = load_audio(path)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = resample_poly(ref.mean(axis=1), sr, SR)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    n = min(len(got), len(want))
+    err = float(np.abs(got[200: n - 200] - want[200: n - 200]).max())
+    log(f"audiokit: {native.library_path('audiokit')} built and loaded in {build_s:.2f} s; "
+        f"{NATIVE_WAV_SECONDS} s 44.1 kHz stereo WAV: decode max |native - numpy| {decode_err:.2e}, "
+        f"load_audio {len(got)} samples in {native_ms:.1f} ms (numpy resampler "
+        f"{numpy_ms:.1f} ms), interior max |native - numpy| {err:.2e} (gate {NATIVE_RESAMPLE_GATE})")
+    assert rate == sr and decode_err <= 1e-6
+    assert abs(len(got) - len(want)) <= 2 and err <= NATIVE_RESAMPLE_GATE
+
+
+def phase_verify_assets(dev, model, model68, tmp):
+    """The asset rehearsal: full-width stand-ins of every asset under their
+    MANIFEST names (the 30M and 68M as executable exports at REHEARSAL_T_IN),
+    the MANIFEST re-pinned to them, `cli verify-assets --device cuda`, the
+    golden stacks on the same export, and the native WAV path. Returns the
+    launches of kernels 1-3 over the phase."""
+    from sherpa_vietnamese_asr_tpu_torch.models import assets
+    from sherpa_vietnamese_asr_tpu_torch.tools.rehearsal_assets import write_assets
+
+    t0 = time.perf_counter()
+    models = rehearsal_models(model, model68)
+    root = os.path.join(tmp, "models")
+    manifest = write_assets(root, models, t_in=REHEARSAL_T_IN)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    t1 = time.perf_counter()
+    log(f"verify assets: {len(manifest) - 1} assets written ({size / 1e6:.0f} MB) and "
+        f"re-pinned in {t1 - t0:.1f} s; the 30M and 68M joiners x {AUTO_SHARPEN}")
+    saved = (assets.MANIFEST, assets._cache, os.environ.get("SVT_MODELS_DIR"))
+    assets.MANIFEST, assets._cache = manifest, {}
+    os.environ["SVT_MODELS_DIR"] = root
+    try:
+        zero_counts()
+        verify_assets_cli(tmp)
+        run_launches = kernel_counts()
+        t2 = time.perf_counter()
+    finally:
+        assets.MANIFEST, assets._cache = saved[0], saved[1]
+        if saved[2] is None:
+            os.environ.pop("SVT_MODELS_DIR")
+        else:
+            os.environ["SVT_MODELS_DIR"] = saved[2]
+    log(f"verify assets: cli verify-assets --device cuda {t2 - t1:.1f} s, launches {run_launches}")
+    assert run_launches["attention_weights"] > 0 and run_launches["beam_search"] > 0, \
+        f"verify-assets did not run kernels 2 and 3: {run_launches}"
+    asr_dir = os.path.join(root, assets.MANIFEST["zipformer-30m"]["local_dir"])
+    stack_launches = golden_stacks(dev, models["zipformer-30m"], asr_dir)
+    audiokit_wav(tmp)
+    log(f"verify assets phase {time.perf_counter() - t0:.1f} s on {card()}")
+    return {k: run_launches[k] + stack_launches[k] for k in run_launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -3968,6 +4182,9 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         launches_serving = phase_serving(dev, model, model16, tmp)
     log("PHASE serving ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_verify = phase_verify_assets(dev, model, model68, tmp)
+    log("PHASE verify assets ok")
     paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
              launches_punct, launches_stream, launches_senko, launches_overlap)
     for k in kernels:  # each kernel's count from the first path that runs it
@@ -3975,10 +4192,12 @@ def main(argv=None):
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)
     kernels += senko_kernels  # kernel 1 on the Senko and overlap paths, counted there
     assert all(k["launches"] > 0 for k in kernels), "a kernel ran on no path"
-    for k in kernels:  # launches on the serving path (phase 12), counted there
+    for k in kernels:  # launches on the serving (12) and verify-assets (13) paths
         k["serving_launches"] = launches_serving.get(k["name"], 0)
+        k["verify_launches"] = launches_verify.get(k["name"], 0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "serving_launches")
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "serving_launches",
+             "verify_launches")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

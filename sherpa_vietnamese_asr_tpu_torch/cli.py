@@ -1,7 +1,8 @@
 # Command-line interface of the port.
 #
 # Port of sherpa_vietnamese_asr_tpu/cli.py's `transcribe`, `serve`,
-# `warmup` and `calibrate` subcommands (their functions and arguments):
+# `warmup`, `calibrate`, `verify-assets`, `install-service` and `monitor`
+# subcommands (their functions and arguments):
 #
 #   python -m sherpa_vietnamese_asr_tpu_torch.cli transcribe <audio>
 #       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad]
@@ -12,18 +13,25 @@
 #          queue, /ws/stream live captions, summaries, calibration
 #   ... warmup [--stages a,b] -> pipeline/warmup.py, each stage once
 #   ... calibrate [--autotune] [--full] -> calibration_report.json
+#   ... verify-assets [--asset KEY]... [--json] -> models/verify_assets.py,
+#       exit code 1 when a present asset fails
+#   ... install-service [--port P] [--data-dir DIR] [--output FILE]
+#       -> a systemd unit that runs `serve` of this package
+#   ... monitor [--interval S] [--samples N] [--output CSV] -> RSS and CPU
 #
-# Each runs on the card unless --device cpu is given; without a card the
-# default raises. --diarize runs the pure pyannote-Community-1 diarizer
-# (pipeline/diarization_pure.PureDiarizer) on the same device, its models
-# from the --model directory when it holds them. --punctuate restores
-# punctuation and case with ViBERT (pipeline/punctuation), its
-# vibert-capu.onnx and vocab.txt from the --model directory when it holds
-# them; --quality adds DNSMOS (pipeline/quality.QualityAnalyzer), from the
-# asset registry; both run on the same device, with loudly flagged random
-# weights when no checkpoint is found, as in the JAX CLI. `serve` loads its
-# models in float32, as the JAX CLI does. The reference's other subcommands
-# (bench, monitor, install-service, verify-assets) are not ported yet.
+# Each device-facing command runs on the card unless --device cpu is given;
+# without a card the default raises. --diarize runs the pure
+# pyannote-Community-1 diarizer (pipeline/diarization_pure.PureDiarizer) on
+# the same device, its models from the --model directory when it holds
+# them. --punctuate restores punctuation and case with ViBERT
+# (pipeline/punctuation), its vibert-capu.onnx and vocab.txt from the
+# --model directory when it holds them; --quality adds DNSMOS
+# (pipeline/quality.QualityAnalyzer), from the asset registry; both run on
+# the same device, with loudly flagged random weights when no checkpoint is
+# found, as in the JAX CLI. `serve` loads its models in float32, as the JAX
+# CLI does. The JAX CLI's `bench` runs its own benchmark (bench.py); this
+# package's `bench` waits for a benchmark of this package to define what it
+# measures.
 
 from __future__ import annotations
 
@@ -271,6 +279,81 @@ def cmd_calibrate(args):
     return 0
 
 
+def cmd_verify_assets(args):
+    """Real-asset rehearsal (models/verify_assets.py): hash -> import ->
+    forward on the device -> graph-executor cross-check -> token parity,
+    per asset."""
+    from sherpa_vietnamese_asr_tpu_torch.models.verify_assets import (
+        format_report,
+        verify_assets,
+    )
+
+    keys = args.asset or None
+    report = verify_assets(keys, device=args.device)
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print(format_report(report))
+    return 0 if report["ok"] else 1
+
+
+def cmd_install_service(args):
+    """Write a systemd unit (reference service_installer.py installs a
+    Windows service; this is the Linux analogue)."""
+    import shutil
+
+    unit = f"""[Unit]
+Description=Vietnamese ASR API server (PyTorch/CUDA)
+After=network.target
+
+[Service]
+Type=simple
+ExecStart={shutil.which("python3") or "/usr/bin/python3"} -m \
+sherpa_vietnamese_asr_tpu_torch.cli serve --host 0.0.0.0 --port {args.port} \
+--data-dir {args.data_dir}
+WorkingDirectory={os.path.dirname(os.path.dirname(os.path.abspath(__file__)))}
+Restart=on-failure
+RestartSec=5
+
+[Install]
+WantedBy=multi-user.target
+"""
+    with open(args.output, "w") as f:
+        f.write(unit)
+    print(f"wrote {args.output}; install with:\n"
+          f"  sudo cp {args.output} /etc/systemd/system/ && "
+          "sudo systemctl enable --now svt-asr")
+    return 0
+
+
+def cmd_monitor(args):
+    """RAM/CPU/disk sampler (reference resource_monitor.py equivalent)."""
+    import csv
+    import resource
+
+    out = open(args.output, "w", newline="") if args.output else None
+    writer = csv.writer(out) if out else None
+    if writer:
+        writer.writerow(["t", "rss_mb", "cpu_user_s", "cpu_sys_s"])
+    t0 = time.time()
+    try:
+        for _ in range(args.samples):
+            ru = resource.getrusage(resource.RUSAGE_SELF)
+            rss_mb = ru.ru_maxrss / 1024
+            row = [round(time.time() - t0, 1), round(rss_mb, 1),
+                   round(ru.ru_utime, 2), round(ru.ru_stime, 2)]
+            print(f"t={row[0]}s rss={row[1]}MB user={row[2]}s sys={row[3]}s")
+            if writer:
+                writer.writerow(row)
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if out:
+            out.close()
+    return 0
+
+
 def _device_arg(parser):
     parser.add_argument("--device", default="cuda",
                         help="torch device; the default needs a card, 'cpu' "
@@ -378,6 +461,32 @@ def build_parser():
                         "1e-4; widen for random-weight rehearsals)")
     _device_arg(c)
     c.set_defaults(fn=cmd_calibrate)
+
+    va = sub.add_parser(
+        "verify-assets",
+        help="verify downloaded checkpoints: pinned hashes, importer "
+             "mapping, forward on the device, numpy graph-executor "
+             "cross-check, decode token parity")
+    va.add_argument("--asset", action="append",
+                    help="restrict to one asset key (repeatable); "
+                         "default: all")
+    va.add_argument("--json", action="store_true")
+    _device_arg(va)
+    va.set_defaults(fn=cmd_verify_assets)
+
+    sv = sub.add_parser("install-service",
+                        help="write a systemd unit for the API server "
+                             "(reference service_installer.py analogue)")
+    sv.add_argument("--port", type=int, default=8000)
+    sv.add_argument("--data-dir", default="/var/lib/svt-asr")
+    sv.add_argument("--output", default="svt-asr.service")
+    sv.set_defaults(fn=cmd_install_service)
+
+    m = sub.add_parser("monitor", help="resource monitor")
+    m.add_argument("--interval", type=float, default=1.0)
+    m.add_argument("--samples", type=int, default=60)
+    m.add_argument("--output", default=None)
+    m.set_defaults(fn=cmd_monitor)
     return p
 
 

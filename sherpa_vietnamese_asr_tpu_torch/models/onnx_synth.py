@@ -1,4 +1,5 @@
-# Copied from sherpa_vietnamese_asr_tpu/models/onnx_synth.py (host numpy; only the package path changes).
+# Copied from sherpa_vietnamese_asr_tpu/models/onnx_synth.py (host numpy; the package
+# path changes, and GraphBuilder.build joins the graph's fields once).
 # ONNX graph writer: synthesize structurally-real ONNX model files.
 #
 # The reference app ships every model as a torch.onnx.export'ed .onnx file
@@ -131,23 +132,24 @@ class GraphBuilder:
         return outputs[0] if len(outputs) == 1 else outputs
 
     def build(self) -> bytes:
-        graph = b""
+        # The graph's fields are joined once: appending them one by one
+        # copies the graph so far each time (minutes for a full-size
+        # encoder graph); the bytes are the same.
+        fields = []
         for op, ins, outs, attrs in self._nodes:
-            nb = b""
-            for i in ins:
-                nb += pw.write_field(1, 2, i.encode())
-            for o in outs:
-                nb += pw.write_field(2, 2, o.encode())
-            nb += pw.write_field(4, 2, op.encode())
-            for k, v in attrs.items():
-                nb += pw.write_field(5, 2, attribute_proto(k, v))
-            graph += pw.write_field(1, 2, nb)
+            nb = b"".join(
+                [pw.write_field(1, 2, i.encode()) for i in ins]
+                + [pw.write_field(2, 2, o.encode()) for o in outs]
+                + [pw.write_field(4, 2, op.encode())]
+                + [pw.write_field(5, 2, attribute_proto(k, v))
+                   for k, v in attrs.items()])
+            fields.append(pw.write_field(1, 2, nb))
         for name, arr in self._inits.items():
-            graph += pw.write_field(5, 2, tensor_proto(name, arr))
+            fields.append(pw.write_field(5, 2, tensor_proto(name, arr)))
         for n in self._inputs:
-            graph += pw.write_field(11, 2, pw.write_field(1, 2, n.encode()))
+            fields.append(pw.write_field(11, 2, pw.write_field(1, 2, n.encode())))
         for n in self._outputs:
-            graph += pw.write_field(12, 2, pw.write_field(1, 2, n.encode()))
+            fields.append(pw.write_field(12, 2, pw.write_field(1, 2, n.encode())))
         model = pw.write_field(1, 0, 8)  # ir_version
-        model += pw.write_field(7, 2, graph)
+        model += pw.write_field(7, 2, b"".join(fields))
         return model

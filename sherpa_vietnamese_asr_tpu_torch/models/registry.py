@@ -114,6 +114,18 @@ def build_modules(name, zip_cfg, rnnt_cfg, id2token, beam_size) -> AsrModel:
                     id2token=id2token, beam_size=beam_size)
 
 
+def with_pos_dtype(model: AsrModel, pos_dtype: str) -> AsrModel:
+    """`model` with its encoder's position scores in `pos_dtype` ("float32"
+    for the strict-parity forwards of models/golden.py and
+    models/verify_assets.py), the same weights on the same device. The
+    encoder's modules hold the config, so a new encoder takes the weights."""
+    zcfg = dataclasses.replace(model.zip_cfg, pos_dtype=pos_dtype)
+    encoder = ZipformerEncoder(zcfg)
+    encoder.load_state_dict(model.encoder.state_dict())
+    out = dataclasses.replace(model, zip_cfg=zcfg, encoder=encoder)
+    return out.to(model.device)
+
+
 def _init_random_(module: nn.Module, generator: torch.Generator):
     """The JAX package's init scheme: every weight N(0, 1/fan_in) with
     fan_in = prod(shape[1:]) in torch layout; biases zero; BiasNorm,

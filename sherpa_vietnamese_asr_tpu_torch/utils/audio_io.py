@@ -1,5 +1,4 @@
-# Copied from sherpa_vietnamese_asr_tpu/utils/audio_io.py (host numpy; the
-# native WAV fast path is left out, the pure-numpy reader is kept).
+# Copied from sherpa_vietnamese_asr_tpu/utils/audio_io.py (host numpy; only the package path changes).
 # Audio loading: WAV fast path, ffmpeg subprocess fallback, polyphase resample.
 #
 # Mirrors the reference's load_audio strategy (reference core/asr_engine.py:
@@ -159,14 +158,29 @@ def load_audio(path, sample_rate=SAMPLE_RATE, progress_callback=None):
     """
     ext = os.path.splitext(path)[1].lower()
     if ext == ".wav":
-        # The JAX package first tries its native decoder (native/audiokit.cpp);
-        # this package reads WAV with the pure-numpy reader only.
-        x, rate = read_wav(path)
-        audio = x.mean(axis=1) if x.shape[1] > 1 else x[:, 0]
-        if rate != sample_rate:
-            if progress_callback:
-                progress_callback("PHASE:LoadAudio|Resampling|10")
-            audio = resample_poly(audio, rate, sample_rate)
+        # Prefer the native decoder/resampler (native/audiokit.cpp); fall
+        # back to the pure-python implementations below.
+        audio = rate = None
+        try:
+            from sherpa_vietnamese_asr_tpu_torch.utils.native import (
+                resample_native, wav_decode_native,
+            )
+            decoded = wav_decode_native(path)
+            if decoded is not None:
+                audio, rate = decoded
+                if rate != sample_rate:
+                    if progress_callback:
+                        progress_callback("PHASE:LoadAudio|Resampling|10")
+                    audio = resample_native(audio, rate, sample_rate)
+        except Exception:
+            audio = None
+        if audio is None:
+            x, rate = read_wav(path)
+            audio = x.mean(axis=1) if x.shape[1] > 1 else x[:, 0]
+            if rate != sample_rate:
+                if progress_callback:
+                    progress_callback("PHASE:LoadAudio|Resampling|10")
+                audio = resample_poly(audio, rate, sample_rate)
     else:
         if progress_callback:
             progress_callback("PHASE:LoadAudio|Decoding (ffmpeg)|5")
