@@ -134,15 +134,29 @@ Phases (any failure raises and the script exits non-zero):
      no skip but the JAX package's own, kernels 2 and 3 launched; each exec
      row's max_abs / rel_l2; models/golden.run_torch_stack on the card
      against run_exec_stack on the same export (tokens that differ, held to
-     the host CPU's count); the native audiokit built, and a 44.1 kHz
-     stereo WAV through load_audio against the pure-numpy path.
-The line before the last is a JSON summary of the kernels, each with its
-bound (the least time the card could take for the same work, from this
-run's shapes and the card's published peaks), kernel 1 also at the Senko
-(CAMPP_FBANK on the speech regions) and overlap paths' shapes with their
-own launches, and each kernel's launches on the serving path
-("serving_launches") and on the verify-assets path ("verify_launches");
-the last line is {"ok": true, "device": {...}}.
+     the host CPU's count); the native audiokit built, and 0.5 s of a
+     44.1 kHz stereo WAV through load_audio against the pure-numpy path.
+ 14. bench: the package's bench (`cli bench`'s main) with two timed batches
+     a tier and a 2-minute full pipeline, its JSON line printed; any
+     `skipped` but time_budget (a failed check_contract among them) or a
+     value that is not positive fails, and kernels 1-4 must launch.
+ 15. multi-device: BatchedChunkDecoder on 16 spans of 30 s with mesh
+     [cuda:0], and with a CPU copy of the model replicated to the card by
+     the mesh, bit-identical to mesh=None; two replicas on the card
+     ([cuda:0, cuda:0] at max_batch 16, the same launch shapes as mesh=None
+     at max_batch 8) bit-identical too; QualityAnalyzer on six windows over
+     the two replicas equal to the unsplit analyzer on each half; a
+     full-width PureDiarizer's two superblocks on 100 s and GecBert (full
+     ViBERT, mini_batch 32 in pieces of 16 against 16) on the phase-9 text,
+     each bit-identical over two replicas.
+Each phase prints its seconds. The line before the last is a JSON summary
+of the kernels, each with its bound (the least time the card could take
+for the same work, from this run's shapes and the card's published peaks),
+kernel 1 also at the Senko (CAMPP_FBANK on the speech regions) and overlap
+paths' shapes with their own launches, and each kernel's launches on the
+serving path ("serving_launches"), the verify-assets path
+("verify_launches") and the bench ("bench_launches"); the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py [--parent DIR]
 """
@@ -2815,7 +2829,7 @@ def twin_text(model, cpu_model, window, pad_sec):
         enc, enc_lens = enc.cpu(), enc_lens.cpu()
         res = beam_search_batch_cuda(enc, enc_lens, cpu_model.decoder, cpu_model.joiner,
                                      cpu_model.rnnt_cfg, beam_size=model.beam_size)
-    return text_of(dec._words_from_result(res, enc_lens, span, cpu_model)[0])
+    return text_of(dec._words_from_result([(res, enc_lens)], span, cpu_model)[0])
 
 
 def final_differ(texts, ref_texts):
@@ -3929,7 +3943,7 @@ JAX_SKIPS = ("skipped: weight-only export (no executable graph)",
              "skipped: stateful If/LSTM streaming graph exec not wired; importer "
              "oracle-tested vs torch")
 NATIVE_RESAMPLE_GATE = 5e-3  # tests/test_native.py: audiokit against resample_poly, interior
-NATIVE_WAV_SECONDS = 0.25  # resample_poly convolves at 160 x 44.1 kHz: about 30 s of host time a second
+NATIVE_WAV_SECONDS = 0.5  # 44.1 kHz stereo; the numpy resample_poly is a polyphase sum
 
 
 def rehearsal_models(model, model68):
@@ -4119,6 +4133,200 @@ def phase_verify_assets(dev, model, model68, tmp):
     return {k: run_launches[k] + stack_launches[k] for k in run_launches}
 
 
+# ---------------------------------------------------------------- phase 14
+
+BENCH_ARGV = ["--device", "cuda", "--n-batches", "2", "--minutes", "2"]
+BENCH_KERNELS = ("fbank_logmel", "attention_weights", "beam_search", "encoder_layer_bf16")
+
+
+def all_counts():
+    """Every kernel wrapper's launch count, by the kernels line's names."""
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, encoder_layer, fbank
+
+    return {"fbank_logmel": fbank.launches, "attention_weights": attention.launches,
+            "beam_search": beam_search_cuda.launches,
+            "encoder_layer_bf16": encoder_layer.launches,
+            "beam_search_hotwords": beam_search_cuda.hotword_launches,
+            "attention_weights_bf16band": attention.bf16band_launches}
+
+
+def zero_all_counts():
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention, beam_search_cuda, encoder_layer, fbank
+
+    fbank.launches = attention.launches = attention.bf16band_launches = 0
+    beam_search_cuda.launches = beam_search_cuda.hotword_launches = encoder_layer.launches = 0
+
+
+def phase_bench():
+    """The package's bench (`cli bench`'s main) at a reduced size: two timed
+    batches a tier and a 2-minute full pipeline. Any `skipped` but
+    time_budget (a failed check_contract among them) or a value that is not
+    positive fails the phase. Returns each kernel's launches over the run."""
+    import contextlib
+    import io
+
+    from sherpa_vietnamese_asr_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    zero_all_counts()
+    with contextlib.redirect_stdout(buf):
+        out = bench.main(BENCH_ARGV)
+    launches = all_counts()
+    line = buf.getvalue().strip()
+    log(f"bench {' '.join(BENCH_ARGV)}: {line}")
+    assert json.loads(line) == out
+    for entry in [out] + out["extras"]:
+        skipped = entry.get("skipped")
+        assert skipped in (None, "time_budget"), f"bench: {entry['metric']} skipped: {skipped}"
+        assert skipped or entry["value"] > 0, f"bench: {entry['metric']} value {entry['value']}"
+    assert [e["metric"] for e in out["extras"]][:1] == ["rtfx_zipformer30m_beam8_fp32_per_chip"]
+    assert out["extras"][0].get("default_tier") is True
+    log(f"bench launches {launches} in {time.perf_counter() - t0:.1f} s ({card()})")
+    missing = [k for k in BENCH_KERNELS if launches[k] == 0]
+    assert not missing, f"bench: kernels never launched: {missing}"
+    return launches
+
+
+# ---------------------------------------------------------------- phase 15
+
+MESH_SPANS = 16  # 30 s spans: two batches of 8, or one of 16 split in two
+
+
+def mesh_words(model, audio, spans, **kw):
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.decoder import BatchedChunkDecoder
+
+    dec = BatchedChunkDecoder(model, **kw)
+    return dec, dec.decode_spans(audio, spans)
+
+
+def phase_multi_device(dev, model):
+    """Data parallelism over a list of devices on the one card. The decoder
+    with mesh [cuda:0], and with a CPU copy of the model replicated to
+    cuda:0 by the mesh, must give mesh=None's words bit for bit; two
+    replicas on the card, [cuda:0, cuda:0] at max_batch 16, launch the same
+    shapes as mesh=None at max_batch 8 and must give the same words bit for
+    bit; likewise QualityAnalyzer on six windows split in two (against the
+    unsplit analyzer on each half; the six-window batch within
+    DNSMOS_GATE), PureDiarizer's superblocks and GecBert's minibatches."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import random_dnsmos
+    from sherpa_vietnamese_asr_tpu_torch.parallel.sharding import default_mesh, make_mesh, shard_model
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.quality import DNSMOS_LEN, QualityAnalyzer
+
+    t0 = time.perf_counter()
+    assert default_mesh() is None, "one card: default_mesh() must be None"
+    rng = np.random.default_rng(15)
+    audio = speechlike(rng, MESH_SPANS * 30 * SR)
+    spans = [(i * 30 * SR, (i + 1) * 30 * SR) for i in range(MESH_SPANS)]
+    zero_all_counts()
+    plain, ref = mesh_words(model, audio, spans, max_batch=8)
+    launches = all_counts()
+    assert plain.mesh is None and launches["beam_search"] == 2, launches
+    one, got_one = mesh_words(model, audio, spans, max_batch=8, mesh=make_mesh(["cuda:0"]))
+    assert one.model is model
+    cpu_model = shard_model(model, make_mesh(["cpu"]))[0]
+    copied, got_copy = mesh_words(cpu_model, audio, spans, max_batch=8,
+                                  mesh=make_mesh(["cuda:0"]))
+    assert copied.model is not cpu_model and copied.model.device == dev
+    assert cpu_model.device.type == "cpu"
+    zero_all_counts()
+    two, got_two = mesh_words(model, audio, spans, max_batch=16,
+                              mesh=make_mesh(["cuda:0", "cuda:0"]))
+    launches_two = all_counts()
+    assert two.max_batch == 16 and len(two.devices) == 2
+    assert launches_two["beam_search"] == 2, launches_two  # one batch, two pieces of 8
+    n_words = sum(map(len, ref))
+    for label, got in (("mesh [cuda:0]", got_one), ("a CPU copy on mesh [cuda:0]", got_copy),
+                       ("two replicas at max_batch 16", got_two)):
+        differ = sum(g != r for g, r in zip(got, ref)) + abs(len(got) - len(ref))
+        log(f"multi-device: {label} against mesh=None at max_batch 8: {differ} of "
+            f"{len(spans)} spans differ ({n_words} words)")
+        assert differ == 0, f"multi-device: {label} is not bit-identical to mesh=None"
+    card_model = random_dnsmos(seed=0, device=dev)
+    with torch.no_grad():
+        card_model.head.bias.add_(DNSMOS_HEAD_BIAS)
+    windows = [speechlike(rng, DNSMOS_LEN) * g for g in (1.0, 0.6, 0.3, 0.1, 0.05, 0.02)]
+    plain_qa = QualityAnalyzer(model=card_model)
+    halves = np.concatenate([plain_qa.raw_scores(windows[:3]), plain_qa.raw_scores(windows[3:])])
+    split = QualityAnalyzer(model=card_model, mesh=make_mesh(["cuda:0", "cuda:0"]))
+    got = split.raw_scores(windows)
+    whole = float(np.abs(got - plain_qa.raw_scores(windows)).max())
+    log(f"multi-device: DNSMOS on 6 windows, two replicas against mesh=None on each half: "
+        f"max |d| {float(np.abs(got - halves).max()):.3e}; against the 6-window batch "
+        f"{whole:.3e} (gate {DNSMOS_GATE}); decoder launches mesh=None {launches}, two "
+        f"replicas {launches_two}; phase {time.perf_counter() - t0:.1f} s ({card()})")
+    assert got.shape == (6, 3) and np.array_equal(got, halves), \
+        "multi-device: DNSMOS split is not bit-identical to the halves"
+    assert whole <= DNSMOS_GATE
+    mesh_diarizer(dev)
+    mesh_gec(dev)
+    log(f"multi-device phase {time.perf_counter() - t0:.1f} s")
+    return launches_two
+
+
+def mesh_diarizer(dev):
+    """A full-width PureDiarizer's superblocks on 100 s (two superblocks of
+    64 windows): two replicas on the card, one superblock each, bit-identical
+    to mesh=None (the same launch shapes); kernel 1 once a superblock."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.pyannet import random_pyannet
+    from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import random_resnet_speaker
+    from sherpa_vietnamese_asr_tpu_torch.ops import fbank
+    from sherpa_vietnamese_asr_tpu_torch.parallel.sharding import make_mesh
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.diarization_pure import PureDiarizer
+
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(seg_model=random_pyannet(device=dev, generator=gen),
+              emb_model=random_resnet_speaker(device=dev, generator=gen), device=dev)
+    with torch.no_grad():
+        kw["seg_model"].classifier.bias.add_(torch.tensor(DIAR_SPEAKER_BIAS, device=dev))
+    audio = diarization_audio(100)
+    outs = []
+    for mesh in (None, make_mesh(["cuda:0", "cuda:0"])):
+        fbank.launches = 0
+        outs.append(PureDiarizer(mesh=mesh, **kw)._segment_and_embed_fused(audio))
+        assert fbank.launches == 2, f"multi-device: kernel 1 launches {fbank.launches}"
+    (bin_p, starts_p, emb_p), (bin_s, starts_s, emb_s) = outs
+    valid = int((~np.isnan(emb_p[..., 0])).sum())
+    log(f"multi-device: PureDiarizer on 100 s, {len(starts_p)} windows, two replicas "
+        f"against mesh=None: argmax equal {np.array_equal(bin_s, bin_p)}, embeddings "
+        f"bit-identical {np.array_equal(emb_s, emb_p, equal_nan=True)} ({valid} valid slots)")
+    assert starts_s == starts_p and valid > 0
+    assert np.array_equal(bin_s, bin_p) and np.array_equal(emb_s, emb_p, equal_nan=True), \
+        "multi-device: PureDiarizer split is not bit-identical to mesh=None"
+
+
+def mesh_gec(dev):
+    """GecBert (full-width random ViBERT) on the phase-9 text with pause
+    hints: two replicas at mini_batch_size 32 (pieces of 16) against
+    mesh=None at 16, the same launch shapes: every decode call's labels and
+    the restored text bit-identical."""
+    from sherpa_vietnamese_asr_tpu_torch.models.vibert import ViBertConfig, random_vibert
+    from sherpa_vietnamese_asr_tpu_torch.parallel.sharding import make_mesh
+    from sherpa_vietnamese_asr_tpu_torch.pipeline.gec import GecBert
+    from sherpa_vietnamese_asr_tpu_torch.utils.wordpiece import WordPieceTokenizer
+
+    model = random_vibert(ViBertConfig(), seed=0, device=dev)
+    text, hints = gec_text()
+    runs = []
+    for mesh, mb in ((None, 16), (make_mesh(["cuda:0", "cuda:0"]), 32)):
+        gec = GecBert(model, WordPieceTokenizer(gec_vocab()), confidence=0.3,
+                      mini_batch_size=mb, mesh=mesh)
+        record = recorded_gec(gec)
+        out = gec(text, pause_hints=hints)[0]
+        runs.append((out, [np.asarray(r[0]) for r in record]))
+    (out_p, idx_p), (out_s, idx_s) = runs
+    same = len(idx_p) == len(idx_s) and all(np.array_equal(a, b) for a, b in zip(idx_p, idx_s))
+    log(f"multi-device: GecBert on {GEC_WORDS} words, two replicas at mini_batch 32 against "
+        f"mesh=None at 16: {len(idx_s)} decode calls, labels equal {same}, text equal "
+        f"{out_s == out_p}")
+    assert same and out_s == out_p and out_p != text, \
+        "multi-device: GecBert split is not bit-identical to mesh=None"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -4131,9 +4339,17 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     import torch
 
+    t_phase = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        log(f"PHASE {name} ok ({now - t_phase[0]:.1f} s)")
+        t_phase[0] = now
+
     dev = phase_device()
-    log("PHASE device ok")
+    done("device")
     phase_build()
+    t_phase[0] = time.perf_counter()
     parent = parent_entries(os.path.abspath(args.parent)) if args.parent else None
 
     from sherpa_vietnamese_asr_tpu_torch.models.registry import MODEL_68M, random_asr_model
@@ -4157,34 +4373,38 @@ def main(argv=None):
                check_beam_hotwords(dev, model16, tables, parent),
                check_attention_bf16band(dev, model)]
     check_beam_e512(dev, model68)
-    log("PHASE kernel parity ok")
+    done("kernel parity")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)
-        log("PHASE slice ok")
+        done("slice")
         launches_bf16 = phase_slice_bf16(dev, model16, model, tmp)
-    log("PHASE slice bf16 ok")
+    done("slice bf16")
     launches_probe = phase_probe()
-    log("PHASE probe bf16band ok")
+    done("probe bf16band")
     with tempfile.TemporaryDirectory() as tmp:
         launches_default = phase_default_path(dev, model, model68, model68_16, tmp)
-    log("PHASE default path ok")
+    done("default path")
     with tempfile.TemporaryDirectory() as tmp:
         launches_diar = phase_diarization(dev, model, tmp)
-    log("PHASE diarization ok")
+    done("diarization")
     with tempfile.TemporaryDirectory() as tmp:
         launches_punct = phase_punctuation(dev, model, tmp)
-    log("PHASE punctuation and quality ok")
+    done("punctuation and quality")
     launches_stream = phase_streaming(dev, model, model16)
-    log("PHASE streaming ok")
+    done("streaming")
     with tempfile.TemporaryDirectory() as tmp:
         senko_kernels, launches_senko, launches_overlap = phase_senko_overlap(dev, model, tmp)
-    log("PHASE senko and overlap ok")
+    done("senko and overlap")
     with tempfile.TemporaryDirectory() as tmp:
         launches_serving = phase_serving(dev, model, model16, tmp)
-    log("PHASE serving ok")
+    done("serving")
     with tempfile.TemporaryDirectory() as tmp:
         launches_verify = phase_verify_assets(dev, model, model68, tmp)
-    log("PHASE verify assets ok")
+    done("verify assets")
+    launches_bench = phase_bench()
+    done("bench")
+    phase_multi_device(dev, model)
+    done("multi-device")
     paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
              launches_punct, launches_stream, launches_senko, launches_overlap)
     for k in kernels:  # each kernel's count from the first path that runs it
@@ -4192,12 +4412,13 @@ def main(argv=None):
         k["launches"] = next((p[k["name"]] for p in paths if k["name"] in p), 0)
     kernels += senko_kernels  # kernel 1 on the Senko and overlap paths, counted there
     assert all(k["launches"] > 0 for k in kernels), "a kernel ran on no path"
-    for k in kernels:  # launches on the serving (12) and verify-assets (13) paths
+    for k in kernels:  # launches on the serving (12), verify-assets (13) and bench (14) paths
         k["serving_launches"] = launches_serving.get(k["name"], 0)
         k["verify_launches"] = launches_verify.get(k["name"], 0)
+        k["bench_launches"] = launches_bench.get(k["name"], 0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "serving_launches",
-             "verify_launches")
+             "verify_launches", "bench_launches")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 # Command-line interface of the port.
 #
 # Port of sherpa_vietnamese_asr_tpu/cli.py's `transcribe`, `serve`,
-# `warmup`, `calibrate`, `verify-assets`, `install-service` and `monitor`
-# subcommands (their functions and arguments):
+# `warmup`, `calibrate`, `verify-assets`, `install-service`, `monitor` and
+# `bench` subcommands (their functions and arguments):
 #
 #   python -m sherpa_vietnamese_asr_tpu_torch.cli transcribe <audio>
 #       [--model DIR|ID] [--rover] [--wpe] [--enable-resume] [--no-vad]
@@ -18,6 +18,8 @@
 #   ... install-service [--port P] [--data-dir DIR] [--output FILE]
 #       -> a systemd unit that runs `serve` of this package
 #   ... monitor [--interval S] [--samples N] [--output CSV] -> RSS and CPU
+#   ... bench [--n-batches N] [--minutes M] -> bench.py of this package:
+#       one JSON line (bf16 and float32 decode RTFx, full-pipeline RTFx)
 #
 # Each device-facing command runs on the card unless --device cpu is given;
 # without a card the default raises. --diarize runs the pure
@@ -29,9 +31,10 @@
 # (pipeline/quality.QualityAnalyzer), from the asset registry; both run on
 # the same device, with loudly flagged random weights when no checkpoint is
 # found, as in the JAX CLI. `serve` loads its models in float32, as the JAX
-# CLI does. The JAX CLI's `bench` runs its own benchmark (bench.py); this
-# package's `bench` waits for a benchmark of this package to define what it
-# measures.
+# CLI does. The JAX CLI's `bench` runs the repository's bench.py, which
+# imports the JAX package; this package's `bench` runs its own
+# sherpa_vietnamese_asr_tpu_torch/bench.py, the same three measurements on
+# the card.
 
 from __future__ import annotations
 
@@ -354,6 +357,16 @@ def cmd_monitor(args):
     return 0
 
 
+def cmd_bench(args):
+    from sherpa_vietnamese_asr_tpu_torch import bench
+
+    argv = ["--device", args.device, "--minutes", str(args.minutes)]
+    if args.n_batches is not None:
+        argv += ["--n-batches", str(args.n_batches)]
+    bench.main(argv)
+    return 0
+
+
 def _device_arg(parser):
     parser.add_argument("--device", default="cuda",
                         help="torch device; the default needs a card, 'cpu' "
@@ -487,6 +500,15 @@ def build_parser():
     m.add_argument("--samples", type=int, default=60)
     m.add_argument("--output", default=None)
     m.set_defaults(fn=cmd_monitor)
+
+    b = sub.add_parser("bench", help="print one JSON line of decode and "
+                                     "full-pipeline RTFx on the device")
+    b.add_argument("--n-batches", type=int, default=None,
+                   help="timed decode batches a tier (default: 5 on a card)")
+    b.add_argument("--minutes", type=float, default=10.0,
+                   help="length of the full-pipeline file")
+    _device_arg(b)
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

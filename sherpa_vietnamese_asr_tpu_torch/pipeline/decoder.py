@@ -10,6 +10,9 @@
 # builds and uploads the next batch while the card decodes the previous
 # ones, and only collecting a result waits for the card. A chunk transform
 # (WPE dereverberation) runs on each chunk on the host before the upload.
+# With a mesh (parallel/sharding.py) each batch is split over its devices,
+# one model replica each: every device's piece is uploaded and launched
+# before any result is read, and IN_FLIGHT counts batches, not pieces.
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from sherpa_vietnamese_asr_tpu_torch.models.registry import AsrModel
 from sherpa_vietnamese_asr_tpu_torch.ops import fbank as fbank_ops
 from sherpa_vietnamese_asr_tpu_torch.ops.beam_search_cuda import beam_search_batch_cuda
+from sherpa_vietnamese_asr_tpu_torch.parallel import sharding
 from sherpa_vietnamese_asr_tpu_torch.pipeline.words import beam_result_to_words
 from sherpa_vietnamese_asr_tpu_torch.utils.fbank_ref import ASR_FBANK
 
@@ -52,15 +56,23 @@ class BatchedChunkDecoder:
                  chunk_pad_sec: float = CHUNK_PAD_SEC,
                  transfer_dtype: str | None = None,
                  model_b: AsrModel | None = None,
-                 chunk_transform=None):
-        if model_b is not None and model_b.device != model.device:
-            raise ValueError(f"ROVER pair on two devices: {model.device} and "
-                             f"{model_b.device}")
-        self.model = model
-        self.model_b = model_b
-        self.models = [model] + ([model_b] if model_b is not None else [])
+                 chunk_transform=None, mesh=None):
+        # mesh None: every card of a multi-card host, else one device.
+        # max_batch is rounded up to a multiple of the mesh, and each model
+        # (the ROVER partner too) gets one replica a device.
+        self.mesh = mesh if mesh is not None else sharding.default_mesh()
+        models = [model] + ([model_b] if model_b is not None else [])
+        self.replicas = [sharding.shard_model(m, self.mesh) for m in models]  # [model][device]
+        devices = [[r.device for r in reps] for reps in self.replicas]
+        if any(d != devices[0] for d in devices[1:]):
+            raise ValueError(f"ROVER pair on two devices: {devices[0]} and "
+                             f"{devices[1]}")
+        self.devices = devices[0]
+        self.models = [reps[0] for reps in self.replicas]
+        self.model = self.models[0]
+        self.model_b = self.models[1] if model_b is not None else None
         self.chunk_transform = chunk_transform  # e.g. WPE per chunk
-        self.max_batch = max_batch
+        self.max_batch = sharding.round_up(max_batch, self.mesh)
         self.pad_len = int(chunk_pad_sec * SAMPLE_RATE)
         # float32 by default; "int16" halves the upload and is lossless for
         # audio decoded from 16-bit PCM (utils/audio_io.is_int16_exact).
@@ -85,13 +97,14 @@ class BatchedChunkDecoder:
                 batch[i, n: n + fill] = batch[i, n - fill: n][::-1]
         return batch, lens
 
-    def _words_from_result(self, result, enc_lens, group, model):
-        tokens = result.tokens.cpu().numpy()
-        frames = result.frames.cpu().numpy()
-        tok_logp = result.tok_logp.cpu().numpy()
-        entropy = result.entropy.cpu().numpy()
-        num_tokens = result.num_tokens.cpu().numpy()
-        enc_lens_np = enc_lens.cpu().numpy()
+    def _words_from_result(self, launched, group, model):
+        """Words of each span of `group` from the devices' (BeamResult,
+        enc_lens) pieces, read back here and concatenated in device order."""
+        pieces = [r for r, _ in launched]
+        tokens, frames, tok_logp, entropy, num_tokens = (
+            sharding.gather([getattr(r, k) for r in pieces])
+            for k in ("tokens", "frames", "tok_logp", "entropy", "num_tokens"))
+        enc_lens_np = sharding.gather([e for _, e in launched])
         out = []
         for i, (s, e) in enumerate(group):
             dur = (e - s) / SAMPLE_RATE
@@ -102,20 +115,25 @@ class BatchedChunkDecoder:
         return out
 
     def _launch(self, concat_audio, group):
-        """One batch: upload, one fbank, then each model's encoder and beam
-        search from it. Returns [(BeamResult, enc_lens)] a model."""
+        """One batch: upload, then on each device one fbank of its piece and
+        each model's encoder and beam search from it. Returns
+        [model][device] (BeamResult, enc_lens); nothing is read back."""
         # Keep the batch dimension static: pad the last group.
         padded = list(group) + [(0, 1)] * (self.max_batch - len(group))
         audio, lens = self._build_batch(concat_audio, padded)
         if self.transfer_dtype == "int16":
             audio = np.clip(np.rint(audio * 32768.0), -32768, 32767
                             ).astype(np.int16)
-        dev = self.model.device
-        audio_dev = torch.from_numpy(audio).to(dev)
-        n_frames = torch.from_numpy((lens + 80) // 160).to(dev)
+        audio_pieces, _ = sharding.shard_batch(audio, self.mesh, self.devices[0])
+        frame_pieces, _ = sharding.shard_batch((lens + 80) // 160, self.mesh, self.devices[0])
+        launched = [[] for _ in self.replicas]
         with torch.no_grad():
-            feats = fbank_batch(audio_dev)
-            return [decode_feats(feats, n_frames, m) for m in self.models]
+            for d, (a, f) in enumerate(zip(audio_pieces, frame_pieces)):
+                with sharding.device_scope(a.device):
+                    feats = fbank_batch(a)
+                    for out, reps in zip(launched, self.replicas):
+                        out.append(decode_feats(feats, f, reps[d]))
+        return launched
 
     def decode_spans(self, concat_audio, spans, progress_callback=None,
                      phase="Transcription", cancel_check=None):
@@ -130,9 +148,8 @@ class BatchedChunkDecoder:
 
         def drain_one():
             group, launched = inflight.pop(0)
-            for (result, enc_lens), model, out in zip(launched, self.models, outs):
-                out.extend(self._words_from_result(result, enc_lens, group,
-                                                   model))
+            for pieces, model, out in zip(launched, self.models, outs):
+                out.extend(self._words_from_result(pieces, group, model))
             if progress_callback:
                 progress_callback(
                     f"PHASE:{phase}|Decoding chunks|"

@@ -25,7 +25,9 @@
 # compute_single_embedding. Superblocks keep the JAX package's power-of-two
 # window bucketing and zero-padded tail, so every window sees the same
 # samples; up to SVT_DIAR_INFLIGHT (default 3) superblocks are enqueued on
-# the card ahead of the host. One card only: mesh takes None.
+# the card ahead of the host. With a mesh (parallel/sharding.py) the file
+# is uploaded once to each device and a dispatch is one superblock a
+# device, one replica of both models each.
 
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from sherpa_vietnamese_asr_tpu_torch.models.resnet_speaker import (
 )
 from sherpa_vietnamese_asr_tpu_torch.ops import fbank as fbank_ops
 from sherpa_vietnamese_asr_tpu_torch.ops.stats_pool import masked_stats_pool
+from sherpa_vietnamese_asr_tpu_torch.parallel import sharding
 
 SAMPLE_RATE = 16000
 CHUNK_DURATION = 10.0
@@ -590,12 +593,8 @@ class PureDiarizer:
                  min_duration_off=0.0, num_speakers=-1, min_speakers=None,
                  max_speakers=None, segmentation_batch_size=32,
                  embedding_batch_size=64, fused=True, superblock_windows=64,
-                 transfer_dtype="int16", model_dir=None, mesh=None,
+                 transfer_dtype="int16", model_dir=None, mesh="auto",
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PureDiarizer runs on one card (mesh=None): superblocks over "
-                "several GPUs are ROADMAP Queue A item 12")
         self.device = model_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -637,6 +636,11 @@ class PureDiarizer:
             emb_model = random_resnet_speaker(seed=1, device=self.device)
         self.seg_model = seg_model.to(self.device)
         self.emb_model = emb_model.to(self.device)
+        # mesh "auto": every card of a multi-card host, else None (one
+        # device); the fused path runs one superblock a mesh device.
+        self.mesh = sharding.resolve(mesh)
+        self.replicas = list(zip(sharding.replicate(self.seg_model, self.mesh),
+                                 sharding.replicate(self.emb_model, self.mesh)))
         self.seg_cfg = seg_model.cfg
         self.emb_cfg = emb_model.cfg
         self.plda_data = plda_data
@@ -787,38 +791,44 @@ class PureDiarizer:
         take = min(total, len(host))
         host[:take] = host_audio[:take]
         samples = torch.from_numpy(host)
-        dev = self.device
-        if dev.type == "cuda":
-            samples = samples.pin_memory().to(dev, non_blocking=True)
+        devices = list(self.mesh.devices) if self.mesh else [self.device]
+        if any(d.type == "cuda" for d in devices):
+            samples = samples.pin_memory()
+        # The file once on each distinct device.
+        on_device = {d: samples.to(d, non_blocking=True) for d in dict.fromkeys(devices)}
 
-        def drain(item):
-            b, outs, event = item
-            if event is not None:
-                event.synchronize()
-            am, emb, valid = (t.numpy() for t in outs)
-            take = min(w, n - b)
-            am_out[b: b + take] = am[:take]
-            sel = valid[:take]
-            emb_out[b: b + take][sel] = emb[:take][sel]
+        def drain(group):
+            for b, outs, event in group:
+                if event is not None:
+                    event.synchronize()
+                am, emb, valid = (t.numpy() for t in outs)
+                take = min(w, n - b)
+                am_out[b: b + take] = am[:take]
+                sel = valid[:take]
+                emb_out[b: b + take][sel] = emb[:take][sel]
             if progress_callback:
-                progress_callback(int(min(b + w, n) / n * 85), 100)
+                progress_callback(int(min(group[-1][0] + w, n) / n * 85), 100)
 
-        # Up to `depth` superblocks enqueued ahead of the host: the next
-        # span's launches and the previous span's download ride under
-        # device compute instead of a round trip per block.
+        # Up to `depth` groups (a superblock a device) enqueued ahead of the
+        # host: the next span's launches and the previous span's download
+        # ride under device compute instead of a round trip per block.
         depth = inflight_depth()
         inflight = []
-        for b in block_starts:
-            s0 = starts[b]
-            outs = _superblock_body(self.seg_model, self.emb_model,
-                                    samples[s0: s0 + sb_len], w,
-                                    min_seg_frames, quantized)
-            event = None
-            if dev.type == "cuda":
-                outs = tuple(t.to("cpu", non_blocking=True) for t in outs)
-                event = torch.cuda.Event()
-                event.record()
-            inflight.append((b, outs, event))
+        for g in range(0, len(block_starts), len(devices)):
+            group = []
+            for b, dev, (seg, emb) in zip(block_starts[g: g + len(devices)], devices,
+                                          self.replicas):
+                s0 = starts[b]
+                with sharding.device_scope(dev):
+                    outs = _superblock_body(seg, emb, on_device[dev][s0: s0 + sb_len], w,
+                                            min_seg_frames, quantized)
+                    event = None
+                    if dev.type == "cuda":
+                        outs = tuple(t.to("cpu", non_blocking=True) for t in outs)
+                        event = torch.cuda.Event()
+                        event.record()
+                group.append((b, outs, event))
+            inflight.append(group)
             if len(inflight) >= depth:
                 drain(inflight.pop(0))
         while inflight:

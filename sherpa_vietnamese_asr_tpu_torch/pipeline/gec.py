@@ -17,9 +17,11 @@
 # _run_decode enqueues every minibatch before the first download;
 # _run_model (the full logits, for the host _convert) stays as the oracle
 # path. The weights arrive on the device with the module, uploaded once
-# when it was built (the JAX package's __init__ uploads its host tree). One
-# device only: mesh takes None. The JAX package's AOT cache and
-# warm_shapes (the serving warm-up) are not ported.
+# when it was built (the JAX package's __init__ uploads its host tree).
+# With a mesh (parallel/sharding.py) each minibatch, its size rounded up to
+# a multiple of the mesh, is split over the devices, one ViBERT replica
+# each. The JAX package's AOT cache and warm_shapes (the serving warm-up)
+# are not ported.
 
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from difflib import SequenceMatcher
 
 import numpy as np
 import torch
+
+from sherpa_vietnamese_asr_tpu_torch.parallel import sharding
 
 
 def vibert_decode(model, packed, hints, bias, nud_p, nud_c, nud_cneg, t, w,
@@ -162,12 +166,10 @@ class GecBert:
                  case_confidence=0.0, split_chunk=True, chunk_size=56,
                  overlap_size=16, min_words_cut=6,
                  punc_dict=(":", ".", ",", "?"), mini_batch_size=32,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GecBert runs on one device (mesh=None): minibatches over "
-                "several cards are not ported yet")
-        self.mesh = None
+                 mesh="auto"):
+        # mesh "auto": every card of a multi-card host, else None (one device).
+        self.mesh = sharding.resolve(mesh)
+        mini_batch_size = sharding.round_up(mini_batch_size, self.mesh)
         self.model = model
         self.device = model.device
         self.cfg = model.cfg
@@ -213,6 +215,10 @@ class GecBert:
         nud_cneg[self.append_comma_index] = -0.3
         self._decode_vecs = tuple(torch.from_numpy(v).to(self.device)
                                   for v in (bias, nud_p, nud_c, nud_cneg))
+        # Per device: (model, its copy of the vectors).
+        self._replicas = list(zip(
+            sharding.replicate(model, self.mesh),
+            zip(*(sharding.replicate(v, self.mesh) for v in self._decode_vecs))))
 
     # -- chunking ----------------------------------------------------------
     def split_chunks(self, batch, pause_hints=None):
@@ -342,7 +348,8 @@ class GecBert:
         }
 
     def _upload(self, a):
-        return torch.from_numpy(a).to(self.device)
+        """A minibatch's pieces, one a device (one piece without a mesh)."""
+        return sharding.shard_batch(a, self.mesh, self.device)[0]
 
     def _run_decode(self, inputs, hints_rows=None):
         """On-device forward + convert (vibert_decode): one packed int32
@@ -376,15 +383,20 @@ class GecBert:
                 packed[:k, 2 * t:] = offs[sl]
                 hsl = np.full((mb, w), np.nan, np.float32)
                 hsl[:k] = hints_arr[sl]
-                launched.append((k, vibert_decode(
-                    self.model, self._upload(packed), self._upload(hsl),
-                    *self._decode_vecs, t=t, w=w, noop_index=self.noop_index,
-                    incorr_index=self.incorr_index)))
+                outs = []
+                for (model, vecs), p, h in zip(self._replicas, self._upload(packed),
+                                               self._upload(hsl)):
+                    with sharding.device_scope(p.device):
+                        outs.append(vibert_decode(
+                            model, p, h, *vecs, t=t, w=w, noop_index=self.noop_index,
+                            incorr_index=self.incorr_index))
+                launched.append((k, outs))
             mp_parts, idx_parts, err_parts = [], [], []
-            for k, (mp, ix, er) in launched:
-                mp_parts.append(mp.cpu().numpy()[:k])
-                idx_parts.append(ix.cpu().numpy()[:k])
-                err_parts.append(er.cpu().numpy()[:k])
+            for k, outs in launched:
+                mp, ix, er = (sharding.gather(parts, k) for parts in zip(*outs))
+                mp_parts.append(mp)
+                idx_parts.append(ix)
+                err_parts.append(er)
         return (np.concatenate(mp_parts, axis=0).tolist(),
                 np.concatenate(idx_parts, axis=0).tolist(),
                 np.concatenate(err_parts, axis=0).tolist())
@@ -403,11 +415,14 @@ class GecBert:
                     out = np.zeros((mb,) + a.shape[1:], a.dtype)
                     out[: sl.stop - sl.start] = a[sl]
                     return self._upload(out)
-                lg, dt = self.model(
-                    pad(inputs["input_ids"]), pad(inputs["attention_mask"]),
-                    pad(inputs["token_type_ids"]), pad(inputs["input_offsets"]))
-                logits_parts.append(lg.cpu().numpy()[: sl.stop - sl.start])
-                detect_parts.append(dt.cpu().numpy()[: sl.stop - sl.start])
+                outs = []
+                for (model, _), *args in zip(self._replicas, *(pad(inputs[k]) for k in (
+                        "input_ids", "attention_mask", "token_type_ids", "input_offsets"))):
+                    with sharding.device_scope(args[0].device):
+                        outs.append(model(*args))
+                lg, dt = (sharding.gather(parts, sl.stop - sl.start) for parts in zip(*outs))
+                logits_parts.append(lg)
+                detect_parts.append(dt)
         return (np.concatenate(logits_parts, axis=0),
                 np.concatenate(detect_parts, axis=0))
 

@@ -5,13 +5,16 @@
 # call's windows in one forward of models/dnsmos.Dnsmos on the model's
 # device, the raw scores mapped through Microsoft's polynomial fit;
 # analyze_speech samples the speech-only audio at 15/50/85%, and
-# compute_dnsmos_average slides windows with 50% overlap. One device only:
-# mesh takes None.
+# compute_dnsmos_average slides windows with 50% overlap. With a mesh
+# (parallel/sharding.py) a call's windows are split over its devices, one
+# model replica each.
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from sherpa_vietnamese_asr_tpu_torch.parallel import sharding
 
 DNSMOS_LEN = 144160  # 9.01 s @ 16 kHz
 
@@ -27,15 +30,10 @@ class QualityAnalyzer:
     asset registry, else a loudly flagged random model (torch.Generator
     seeded 0), goes to `device`, the card by default (raises without one)."""
 
-    def __init__(self, model=None, mesh=None, device=None):
+    def __init__(self, model=None, mesh="auto", device=None):
         from sherpa_vietnamese_asr_tpu_torch.models import assets, convert
         from sherpa_vietnamese_asr_tpu_torch.models.dnsmos import random_dnsmos
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "QualityAnalyzer runs on one device (mesh=None): window "
-                "batches over several cards are not ported yet")
-        self.mesh = None
         if model is None:
             device = device or "cuda"
             loaded = assets.load_dnsmos_asset()
@@ -49,6 +47,9 @@ class QualityAnalyzer:
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
+        # mesh "auto": every card of a multi-card host, else None (one device).
+        self.mesh = sharding.resolve(mesh)
+        self.replicas = sharding.replicate(model, self.mesh)
 
     @staticmethod
     def _map_scores(raw):
@@ -61,13 +62,18 @@ class QualityAnalyzer:
 
     def raw_scores(self, windows):
         """[N, 3] raw (SIG, BAK, OVRL) of up to 144160 samples each,
-        zero-padded, in one forward."""
+        zero-padded, in one forward a device."""
         batch = np.zeros((len(windows), DNSMOS_LEN), np.float32)
         for i, w in enumerate(windows):
             n = min(len(w), DNSMOS_LEN)
             batch[i, :n] = w[:n]
+        pieces, n = sharding.shard_batch(batch, self.mesh, self.device)
         with torch.no_grad():
-            return self.model(torch.from_numpy(batch).to(self.device)).cpu().numpy()
+            outs = []
+            for rep, x in zip(self.replicas, pieces):
+                with sharding.device_scope(x.device):
+                    outs.append(rep(x))
+            return sharding.gather(outs, n)
 
     def compute_dnsmos_batch(self, windows):
         """windows: [N, <=144160] list/array -> list of score dicts.

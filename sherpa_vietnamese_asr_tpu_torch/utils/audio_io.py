@@ -1,4 +1,5 @@
-# Copied from sherpa_vietnamese_asr_tpu/utils/audio_io.py (host numpy; only the package path changes).
+# Copied from sherpa_vietnamese_asr_tpu/utils/audio_io.py (host numpy; only the package path
+# changes), except resample_poly, rewritten as a polyphase sum (see its docstring).
 # Audio loading: WAV fast path, ffmpeg subprocess fallback, polyphase resample.
 #
 # Mirrors the reference's load_audio strategy (reference core/asr_engine.py:
@@ -105,7 +106,17 @@ def is_int16_exact(audio) -> bool:
 
 
 def resample_poly(x, sr_in, sr_out, num_zeros=16):
-    """Windowed-sinc polyphase resampler (Kaiser-windowed), mono float32."""
+    """Windowed-sinc polyphase resampler (Kaiser-windowed), mono float32.
+
+    Not a copy: the JAX package's resample_poly (same name, same module)
+    zero-stuffs the input to `up` x its length and convolves it with the
+    whole 2*num_zeros*max(up, down)+1-tap kernel. This computes the same
+    output as a polyphase sum over the non-zero taps only: for each output
+    sample, the input samples j whose j*up falls inside the kernel's support
+    around it, in float64 with the same Kaiser kernel (beta 8.0, cutoff
+    0.475 / max(up, down)), the same "same"-mode alignment and the same
+    output grid (every `down`-th filtered sample). An empty input raises
+    ValueError, as np.convolve does there."""
     if sr_in == sr_out:
         return x.astype(np.float32)
     from math import gcd
@@ -116,12 +127,28 @@ def resample_poly(x, sr_in, sr_out, num_zeros=16):
     half = num_zeros * max(up, down)
     n = np.arange(-half, half + 1, dtype=np.float64)
     kernel = 2 * cutoff * np.sinc(2 * cutoff * n) * np.kaiser(len(n), 8.0)
-    # Upsample by zero-stuffing, filter, then decimate.
-    x64 = x.astype(np.float64)
-    ups = np.zeros(len(x64) * up)
-    ups[::up] = x64 * up
-    filt = np.convolve(ups, kernel, mode="same")
-    return filt[::down].astype(np.float32)
+    x64 = x.astype(np.float64) * up
+    n_in = len(x64)
+    if n_in == 0:
+        raise ValueError("resample_poly: empty input")
+    # np.convolve(ups, kernel, "same") over the zero-stuffed ups (length
+    # n_in * up): out[i] = full[i + off], full[k] = sum_j x64[j] *
+    # kernel[k - j * up] over 0 <= k - j * up <= 2 * half.
+    n_ups, n_k = n_in * up, len(kernel)
+    off = (min(n_ups, n_k) - 1) // 2
+    n_out = -(-max(n_ups, n_k) // down)
+    taps = 2 * half // up + 1
+    out = np.empty(n_out, np.float64)
+    block = max(1, (1 << 22) // taps)  # outputs a block: bounded memory
+    for q0 in range(0, n_out, block):
+        k = np.arange(q0, min(q0 + block, n_out), dtype=np.int64) * down + off
+        j = -(-(k - 2 * half) // up)[:, None] + np.arange(taps)  # first tap on
+        d = k[:, None] - j * up
+        ok = (j >= 0) & (j < n_in) & (d >= 0) & (d <= 2 * half)
+        out[q0: q0 + len(k)] = np.where(
+            ok, x64[np.clip(j, 0, n_in - 1)] * kernel[np.clip(d, 0, 2 * half)],
+            0.0).sum(axis=1)
+    return out.astype(np.float32)
 
 
 def find_ffmpeg():

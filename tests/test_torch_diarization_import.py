@@ -9,7 +9,7 @@
 #     loader does;
 #   * the numpy k-means gives scikit-learn's partition on separable data,
 #     and scikit-learn's labels on three overlapping Gaussians;
-#   * SVT_DIAR_INFLIGHT must be a positive integer, mesh must be None.
+#   * SVT_DIAR_INFLIGHT must be a positive integer; mesh "auto" is None here.
 # Models agree within 1e-4 (PyanNet log-probs, absolute) and 1e-4 of the
 # reference's largest magnitude (ResNet frame features and embeddings).
 import os
@@ -211,6 +211,8 @@ def test_svt_diar_inflight_must_be_a_positive_integer(monkeypatch, value):
         TINY_RESNET, device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="SVT_DIAR_INFLIGHT"):
         diar.process(np.zeros(16000 * 3, np.float32))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dp.PureDiarizer(seg_model=seg, emb_model=diar.emb_model, device="cpu", mesh="auto")
+    # mesh "auto" is default_mesh(): None on a host without several cards.
+    assert diar.mesh is None and diar.replicas == [(diar.seg_model, diar.emb_model)]
+    assert dp.PureDiarizer(seg_model=seg, emb_model=diar.emb_model, device="cpu",
+                           mesh=None).mesh is None
     assert jax.default_backend() == "cpu"

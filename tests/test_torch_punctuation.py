@@ -12,8 +12,8 @@
 #   (d) the JAX package's tests/test_punctuation.py cases on the port's
 #       copies (WordPiece, edits, nudges, chunking, post-processing, pause
 #       hints, alignment, buckets, the vocabulary loader, the int8 tier,
-#       build_punctuation_restorer) and the port's own rules (mesh=None
-#       only; a failing model makes restore() raise).
+#       build_punctuation_restorer) and the port's own rules (mesh "auto"
+#       is None here; a failing model makes restore() raise).
 import dataclasses
 import os
 import sys
@@ -434,8 +434,9 @@ def test_one_device_only_and_failures_propagate():
     from sherpa_vietnamese_asr_tpu_torch.pipeline.punctuation import PunctuationRestorer
     from sherpa_vietnamese_asr_tpu_torch.utils.wordpiece import WordPieceTokenizer
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        GecBert(port_vibert(jax_vibert(0)), WordPieceTokenizer(gec_vocab()), mesh="auto")
+    # mesh "auto" is default_mesh(): None on a host without several cards.
+    gec = GecBert(port_vibert(jax_vibert(0)), WordPieceTokenizer(gec_vocab()), mesh="auto")
+    assert gec.mesh is None and gec.mini_batch_size == 32
 
     def failing(text, pause_hints=None, progress_callback=None):
         raise RuntimeError("vibert failed on the card")

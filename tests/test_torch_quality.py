@@ -7,7 +7,8 @@
 #   (c) load_dnsmos on a graph of onnx_export_aux.build_dnsmos_graph, on a
 #       TF-named structural export and on the port's writer, every tensor
 #       equal, and the JAX loader on the port's file;
-#   (d) the JAX package's tests/test_quality.py cases, and mesh=None only.
+#   (d) the JAX package's tests/test_quality.py cases, and mesh "auto" is
+#       None here.
 import dataclasses
 
 import jax
@@ -176,5 +177,6 @@ def test_random_fallback_is_flagged_and_one_device_only(tmp_path, monkeypatch, c
     qa = QualityAnalyzer(device="cpu")
     assert "DNSMOS quality model is running with RANDOM weights" in capsys.readouterr().err
     assert qa.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        QualityAnalyzer(model=qa.model, mesh="auto")
+    # mesh "auto" (the default) is default_mesh(): None on a host without
+    # several cards.
+    assert qa.mesh is None and QualityAnalyzer(model=qa.model, mesh="auto").mesh is None
