@@ -24,6 +24,12 @@ Phases (any failure raises and the script exits non-zero):
      across its vocab slices; the bf16-band attention kernel at the
      attention shapes, where kernel 2's twin (the band unrounded) must fail
      its gate; the beam kernel again at Zipformer-68M's joiner input (E 512);
+     the whole-layer kernel at Zipformer-68M's stacks 2-4 (nonlin attends
+     of 288 and 384 columns, two column tiles) with the same faults and
+     gate, beside the plain bf16 layer with kernel 2 at those shapes; the
+     beam kernel at beams 16 and 32 (its caps past 8) at E 256 and 512,
+     with and without hotwords, held to the host twin's spread on near-ties,
+     at B 1 too, with each cap's time;
      with --parent DIR, the attention, beam and layer kernels of
      the checkout in DIR timed against these in turns, both attention
      kernels within the gate, the layer kernel's output bit-identical);
@@ -52,11 +58,13 @@ Phases (any failure raises and the script exits non-zero):
      and agree with the same weights on the CPU, no "VAD failed" phase, the
      .asr.json is written and the fbank, attention and beam kernels ran;
      ROVER over the float32 30M and 68M pair (each model's words equal its
-     own single-model decode); one bfloat16 Zipformer-68M request (kernel 4
-     on stacks 0, 1 and 5 a forward, kernel 2 on stacks 2-4, encoder cosine
-     against float32); enable_resume stopped after the decode and run again
-     on the golden file. Every wall time beside the card's name and power
-     limit;
+     own single-model decode); one bfloat16 Zipformer-68M request, timed in
+     turns against layer_kernel="never" (kernel 4 on all 16 layers of a
+     forward and kernel 2 never, under "auto" and "always"; encoder cosine
+     against float32); the CLI `transcribe --beam 16` and `--beam 32`, each
+     giving an in-memory run's words; enable_resume stopped after the
+     decode and run again on the golden file. Every wall time beside the
+     card's name and power limit;
   8. diarization: a full-width PureDiarizer (PyanNet + ResNet34, random
      weights from a torch.Generator seeded 0) on the card against its CPU
      twin on 20 s of two alternating tones (powerset argmax agreeing on
@@ -189,6 +197,11 @@ BEAM_LENS_823 = [823, 611, 1, 823, 402, 0, 823, 77]
 BEAM_HW_LENS_64 = [64, 0, 33, 64, 1, 50, 64, 8]
 LAYER_SHAPES = (  # (stack, t_ds) of Zipformer-30M at a 33 s chunk
     (0, 1646), (1, 823), (2, 412), (3, 206), (4, 412), (5, 823))
+# Zipformer-68M's stacks whose nonlin attends (288 / 384 / 288 columns) the
+# layer kernel runs in two column tiles; its stacks 0, 1 and 5 have 30M's
+# attend widths.
+LAYER_SHAPES_68M = ((2, 412), (3, 206), (4, 412))
+BEAM_CAPS_LENS = [823, 402, 1, 0]  # B 4 of BEAM_LENS_823's mix: the twins' slow runs
 # Whole-layer kernel vs its twin, over valid rows (all rows of the lens-0
 # chunk): mean and max |kernel - twin| as fractions of mean |twin|.
 # Measured at all six shapes with perturbed biases, norm and bypasses
@@ -746,8 +759,10 @@ def parent_entries(parent):
     from its csrc/ source into build/parent_kernels/ with the parent's nvcc
     flags, the three nvcc started together. Each entry point carries the
     parent's own argtypes (its cuda_lib.SIGNATURES): the beam kernel's
-    arguments are this one's, the attention and layer kernels' may not be
-    (parent_attention, parent_layer)."""
+    arguments are this one's (a parent from before the beam caps takes them
+    without the history workspace, which beams up to 8 leave null), the
+    attention and layer kernels' may not be (parent_attention,
+    parent_layer)."""
     import ctypes
     from pathlib import Path
 
@@ -780,6 +795,9 @@ def parent_entries(parent):
         fns[name] = fn
     log(f"parent kernels: built {pkg / 'csrc'} attention_weights.cu, beam_search.cu and "
         f"encoder_layer.cu in {time.perf_counter() - t0:.1f} s")
+    beam = fns["beam"]
+    if len(beam.argtypes) == len(cuda_lib.SIGNATURES["svt_beam_search"]) - 1:
+        fns["beam"] = lambda *a: beam(*a[:17], *a[18:])  # no `hist` (argument 17)
     return fns
 
 
@@ -890,16 +908,13 @@ def check_beam(dev, model, parent=None):
 
 def check_beam_e512(dev, model68):
     """The beam kernel at Zipformer-68M's joiner input (E 512, the 68M
-    model's random decoder and joiner) against its twin at T 64 and 823.
+    model's random decoder and joiner) against its twin at T 64 and 823,
+    under beam_near_ties' rule.
 
     Random weights leave the logits nearly uniform (top-2 probability
     margins of about 3e-5 at V 2000), where the order of a float32 sum
     decides some beam steps: the same twin on the host CPU differs from the
-    twin on the card in a few tokens (8 in 3 rows at T 823 on an H100).
-    So the kernel is held to that spread: it may differ from the twin on
-    the card in no more tokens than the host twin does, and on every row
-    where its tokens equal the twin's it must match frames, per-token
-    log-probs and metrics as _beam_compare does."""
+    twin on the card in a few tokens (8 in 3 rows at T 823 on an H100)."""
     import copy
 
     import torch
@@ -911,31 +926,115 @@ def check_beam_e512(dev, model68):
     smem = beam_search_cuda._kernel_smem_bytes(823, e, cfg.decoder_dim, cfg.joiner_dim,
                                                cfg.vocab_size)
     log(f"beam E {e}: shared memory a block at T 823 {smem} B "
-        f"(limit {beam_search_cuda._SMEM_LIMIT} B)")
+        f"(limit {beam_search_cuda._smem_limit(8)} B)")
     dec_cpu, joi_cpu = copy.deepcopy(model68.decoder).cpu(), copy.deepcopy(model68.joiner).cpu()
     gen = torch.Generator(device="cpu").manual_seed(5)
     for t, lens in ((64, BEAM_LENS_64), (823, BEAM_LENS_823)):
         enc = torch.randn((SLICE_BATCH, t, e), generator=gen).to(dev)
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         got, ref = _beam_pair(enc, lens, model68.decoder, model68.joiner, cfg)
-        host = beam_search.beam_search_batch(enc.cpu(), lens.cpu(), dec_cpu, joi_cpu, cfg, 8)
-        torch.cuda.synchronize()
-        kernel_diff = got.tokens != ref.tokens
-        order_diff = int((ref.tokens.cpu() != host.tokens).sum())
-        same = ~kernel_diff.any(dim=1)
-        log(f"beam E={e} T={t} mixed lens: kernel vs twin {int(kernel_diff.sum())} tokens "
-            f"differ (rows {kernel_diff.any(dim=1).nonzero().flatten().tolist()}), twin on "
-            f"the host vs on the card {order_diff}; n {got.num_tokens.tolist()}")
-        assert int(kernel_diff.sum()) <= order_diff, f"beam E={e} T={t}: token parity"
-        rows = [beam_search.BeamResult(*(getattr(r, f.name)[same]
-                                         for f in dataclasses.fields(r)))
-                for r in (got, ref)]
-        _beam_compare(f"E={e} T={t} rows {same.nonzero().flatten().tolist()}", *rows)
+        beam_near_ties(f"E={e} T={t} mixed lens", got, ref, lambda: beam_search.beam_search_batch(
+            enc.cpu(), lens.cpu(), dec_cpu, joi_cpu, cfg, 8))
     args = (enc, lens, model68.decoder, model68.joiner, cfg, 8)
     ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args), reps=5, warmup=1)
     bnd = beam_bound(*args)
     log(f"beam E {e}: B {SLICE_BATCH} T 823 V {cfg.vocab_size} beam 8: kernel {ms:.3f} ms, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+
+
+def beam_near_ties(label, got, ref, host):
+    """The beam kernel against its twin on random weights, whose near-ties
+    the order of a float32 sum decides: the kernel may differ from the twin
+    on the card in no more tokens than the twin on the host CPU (host(), run
+    only when the kernel differs) differs from it, and on every row whose
+    tokens equal the twin's it must match frames, per-token log-probs and
+    metrics as _beam_compare does. Returns the log-prob error of those
+    rows."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search
+
+    torch.cuda.synchronize()
+    kernel_diff = got.tokens != ref.tokens
+    n_diff = int(kernel_diff.sum())
+    order_diff = int((ref.tokens.cpu() != host().tokens).sum()) if n_diff else None
+    same = ~kernel_diff.any(dim=1)
+    log(f"beam {label}: kernel vs twin {n_diff} tokens differ (rows "
+        f"{kernel_diff.any(dim=1).nonzero().flatten().tolist()}), twin on the host vs on the "
+        f"card {'not run' if order_diff is None else order_diff}; n {got.num_tokens.tolist()}")
+    assert n_diff <= (order_diff or 0), f"beam {label}: token parity"
+    assert bool(same.any()), f"beam {label}: no row equal to the twin's"
+    rows = [beam_search.BeamResult(*(getattr(r, f.name)[same] for f in dataclasses.fields(r)))
+            for r in (got, ref)]
+    return _beam_compare(f"{label} rows {same.nonzero().flatten().tolist()}", *rows)
+
+
+def check_beam_caps(dev, model, model68, tables):
+    """The beam kernel past beam 8, at its caps 16 and 32: against its twin
+    on the card at Zipformer-30M's joiner input (E 256) and 68M's (E 512),
+    with and without the hotword table, B 4 T 823 lens BEAM_CAPS_LENS (823,
+    402, 1 and 0 frames) under beam_near_ties' rule, and at B 1 (a streaming
+    session's batch) equal to row 0 of the B 4 decode; then each cap's time
+    at B 8 T 823 (E 256, BEAM_LENS_823) against the twin's and its bound.
+    Returns the kernels line's entries, one a cap."""
+    import copy
+
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search, beam_search_cuda
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    lens = torch.tensor(BEAM_CAPS_LENS, dtype=torch.int32, device=dev)
+    host_tables = tables.to("cpu")
+    errs = {}
+    for m in (model, model68):
+        cfg = m.rnnt_cfg
+        e = cfg.encoder_out_dim
+        host_rnnt = (copy.deepcopy(m.decoder).cpu(), copy.deepcopy(m.joiner).cpu())
+        enc = torch.randn((len(BEAM_CAPS_LENS), 823, e), generator=gen).to(dev)
+        for beam in (16, 32):
+            cap = beam_search_cuda.beam_cap(beam)
+            smem = beam_search_cuda._kernel_smem_bytes(823, e, cfg.decoder_dim,
+                                                       cfg.joiner_dim, cfg.vocab_size, cap)
+            log(f"beam {beam} E {e}: cap {cap}, shared memory a block at T 823 {smem} B "
+                f"(limit {beam_search_cuda._smem_limit(cap)} B)")
+            for hw in (None, tables):
+                label = f"beam {beam} E={e}{' hotwords' if hw is not None else ''} T=823"
+                args = (enc, lens, m.decoder, m.joiner, cfg, beam)
+                got = beam_search_cuda.beam_search_batch_cuda(*args, hw_tables=hw)
+                ref = beam_search.beam_search_batch(*args, hw_tables=hw)
+                host_hw = None if hw is None else host_tables
+                err = beam_near_ties(label, got, ref, lambda: beam_search.beam_search_batch(
+                    enc.cpu(), lens.cpu(), *host_rnnt, cfg, beam, hw_tables=host_hw))
+                if e == 256 and hw is None:
+                    errs[beam] = err
+                    one = beam_search_cuda.beam_search_batch_cuda(enc[:1], lens[:1], m.decoder,
+                                                                  m.joiner, cfg, beam)
+                    torch.cuda.synchronize()
+                    assert torch.equal(one.tokens[0], got.tokens[0]) and \
+                        torch.equal(one.tok_logp[0], got.tok_logp[0]), f"{label}: B 1 moved"
+                    log(f"beam {label}: B 1 equal to row 0 of B {len(BEAM_CAPS_LENS)} "
+                        f"({int(one.num_tokens[0])} tokens)")
+    cfg = model.rnnt_cfg
+    enc = torch.randn((SLICE_BATCH, 823, cfg.encoder_out_dim), generator=gen).to(dev)
+    lens = torch.tensor(BEAM_LENS_823, dtype=torch.int32, device=dev)
+    out = []
+    for beam in (16, 32):
+        args = (enc, lens, model.decoder, model.joiner, cfg, beam)
+        ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args), reps=5, warmup=1)
+        plain_ms = time_ms(lambda: beam_search.beam_search_batch(*args), reps=1, warmup=1)
+        bnd = beam_bound(*args)
+        longest = int(lens.clamp(0, 823).max())
+        log(f"beam {beam}: B {SLICE_BATCH} T 823 V {cfg.vocab_size} cap "
+            f"{beam_search_cuda.beam_cap(beam)}: kernel {ms:.3f} ms ({1e3 * ms / longest:.2f} us "
+            f"a frame over the longest row's {longest}), plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) ({card()})")
+        out.append({"name": f"beam_search_beam{beam}",
+                    "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
+                    "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:101",
+                    "max_abs_err": errs[beam], "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, **bnd})
+    return out
 
 
 def perturbed_layer(layer, gen):
@@ -1077,15 +1176,47 @@ def products_library_ms(products, dev):
     return ms, busy
 
 
-def check_encoder_layer(dev, model, parent=None):
+def plain_layer_times(layer, x, lens, t):
+    """The plain bf16 layer (the "never" route: kernel 2 for its attention
+    weights) on the valid t rows of the same inputs: (event ms, device ms,
+    kernel 2 launches a call)."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.models.zipformer import _pos_emb_on
+    from sherpa_vietnamese_asr_tpu_torch.ops import attention
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import profile_calls
+
+    xs = x[:, :t].contiguous()
+    pos_emb = _pos_emb_on(t, layer.cfg.pos_dim, x.device)
+    pad_mask = torch.arange(t, device=x.device)[None, :] >= lens[:, None]
+
+    def run():
+        with torch.no_grad():
+            return layer(xs, pos_emb, lens, pad_mask)
+
+    run()
+    torch.cuda.synchronize()
+    attention.launches = 0
+    run()
+    per_call = attention.launches
+    ms = time_ms(run, reps=5, warmup=1)
+    busy, _, _ = profile_calls(run, reps=10)
+    return ms, busy, per_call
+
+
+def check_encoder_layer(dev, model, parent=None, shapes=LAYER_SHAPES,
+                        name="encoder_layer_bf16", plain_layer=False):
     """The whole-layer kernel against its twin at every stack shape: batch 8,
     mixed lens (0, 1 and full among them), layer 0 of each stack of the bf16
-    random Zipformer-30M with perturbed biases, norm and bypasses, x ~ N(0, 1)
-    on valid frames and zero padding. The twin with each planted fault of
-    layer_faults() must fail the same gate. Then, at each shape: the device
-    time of the kernel's parts from torch.profiler, the products' TFLOP/s,
-    cuBLAS over the same 20 products, and with a parent checkout its layer
-    kernel against this one in turns (parent, this, this, parent)."""
+    random model (Zipformer-30M at LAYER_SHAPES, 68M at LAYER_SHAPES_68M)
+    with perturbed biases, norm and bypasses, x ~ N(0, 1) on valid frames
+    and zero padding. The twin with each planted fault of layer_faults() must
+    fail the same gate. Then, at each shape: the device time of the kernel's
+    parts from torch.profiler, the products' TFLOP/s, cuBLAS over the same
+    20 products, with plain_layer the plain bf16 layer with kernel 2 at the
+    same shape, and with a parent checkout its layer kernel against this one
+    in turns (parent, this, this, parent). Returns the kernels line's entry
+    for the first shape."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.models.zipformer import _padded_rev_pos_emb
@@ -1095,7 +1226,7 @@ def check_encoder_layer(dev, model, parent=None):
     cfg = model.zip_cfg
     gen = torch.Generator(device="cpu").manual_seed(3)
     out, failures = None, []
-    for stack, t in LAYER_SHAPES:
+    for stack, t in shapes:
         layer = perturbed_layer(model.encoder.stacks[stack].layers[0], gen)
         d, h = cfg.encoder_dim[stack], cfg.num_heads[stack]
         tp = -(-t // el.R) * el.R
@@ -1116,33 +1247,40 @@ def check_encoder_layer(dev, model, parent=None):
         mean, mx, max_abs = layer_errors(got, twin(), lens_list)
         finite = bool(torch.isfinite(got).all())
         fault_errs, rel_pos_scores = {}, el.rel_pos_scores
-        for name, (operands, rel) in layer_faults(el, flat).items():
+        for fault, (operands, rel) in layer_faults(el, flat).items():
             el.rel_pos_scores = rel
             try:
-                fault_errs[name] = layer_errors(got, twin(operands), lens_list)[:2]
+                fault_errs[fault] = layer_errors(got, twin(operands), lens_list)[:2]
             finally:
                 el.rel_pos_scores = rel_pos_scores
         ms = time_ms(lambda: el.encoder_layer(layer, x, rev, lens), reps=5, warmup=1)
         plain_ms = time_ms(twin, reps=3, warmup=1)
         bnd = layer_bound(flat, x, poslin, lens, h, cfg)
-        log(f"encoder_layer: stack {stack} B {SLICE_BATCH} T {t} T_pad {tp} D {d} H {h} "
-            f"K {cfg.cnn_module_kernel[stack]} lens {lens_list} "
+        products = el.layer_products(*el.layer_shape(flat, x.shape, h, cfg.query_head_dim,
+                                                     cfg.pos_head_dim, cfg.value_head_dim))
+        nonlin = el.tile_plan(products[4])
+        log(f"{name}: stack {stack} B {SLICE_BATCH} T {t} T_pad {tp} D {d} H {h} "
+            f"K {cfg.cnn_module_kernel[stack]} nonlin attend {products[4].n} columns in "
+            f"{-(-products[4].n // nonlin.bn)} tile(s) of {nonlin.bn} lens {lens_list} "
             f"max/scale {mx:.3e} mean/scale {mean:.3e} "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']})")
-        log(f"encoder_layer: stack {stack} planted faults (mean/scale, max/scale): " + ", ".join(
-            f"{name} ({m:.3e}, {hi:.3e})" for name, (m, hi) in fault_errs.items()))
-        products = el.layer_products(*el.layer_shape(flat, x.shape, h, cfg.query_head_dim,
-                                                     cfg.pos_head_dim, cfg.value_head_dim))
+        log(f"{name}: stack {stack} planted faults (mean/scale, max/scale): " + ", ".join(
+            f"{fault} ({m:.3e}, {hi:.3e})" for fault, (m, hi) in fault_errs.items()))
         busy, per_name, _ = profile_calls(lambda: el.encoder_layer(layer, x, rev, lens), reps=10)
         parts = layer_split(per_name)
         flops = sum(p.flops for p in products)
         lib_ms, lib_device = products_library_ms(products, dev)
-        log(f"encoder_layer: stack {stack} device {busy:.4f} ms: " + ", ".join(
+        log(f"{name}: stack {stack} device {busy:.4f} ms: " + ", ".join(
             f"{part} {v:.4f} ms" for part, v in parts.items())
             + f"; products {flops / 1e9:.2f} GFLOP at "
             f"{flops / parts['products'] / 1e9:.1f} TFLOP/s; cuBLAS bf16 over the same 20 "
             f"products {lib_ms:.4f} ms ({lib_device:.4f} ms device)")
+        if plain_layer:
+            p_ms, p_busy, p_k2 = plain_layer_times(layer, x, lens, t)
+            log(f"{name}: stack {stack} plain bf16 layer with kernel 2 ({p_k2} launch a "
+                f"call) {p_ms:.3f} ms, device {p_busy:.4f} ms; kernel 4 {ms:.3f} ms, device "
+                f"{busy:.4f} ms ({card()})")
         if parent is not None:
             ref = parent_layer(parent["layer"], layer, x, rev, lens)
             p_mean, p_max, p_abs = layer_errors(got, ref, lens_list)
@@ -1157,16 +1295,16 @@ def check_encoder_layer(dev, model, parent=None):
             del ref
         if not (finite and layer_gate(mean, mx)):
             failures.append(f"stack {stack}: kernel vs twin outside the gate")
-        failures += [f"stack {stack}: planted fault {name} passes the gate"
-                     for name, errs in fault_errs.items() if layer_gate(*errs)]
-        if out is None:  # the stack-0 shape is the one the summary reports
-            out = {"name": "encoder_layer_bf16",
+        failures += [f"stack {stack}: planted fault {fault} passes the gate"
+                     for fault, errs in fault_errs.items() if layer_gate(*errs)]
+        if out is None:  # the first shape is the one the summary reports
+            out = {"name": name,
                    "source": "sherpa_vietnamese_asr_tpu_torch/csrc/encoder_layer.cu",
                    "replaces": "sherpa_vietnamese_asr_tpu/ops/encoder_layer.py:109",
                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": None, **bnd}
         del got
-    assert not failures, "encoder layer parity: " + "; ".join(failures)
+    assert not failures, f"{name} parity: " + "; ".join(failures)
     return out
 
 
@@ -1559,9 +1697,13 @@ def rover_pair(model, model68, audio):
 
 
 def bf16_68m(model68, model68_16, audio, path):
-    """One bfloat16 Zipformer-68M request, then one encoder forward with the
-    counts at 0: kernel 4 on stacks 0, 1 and 5 (6 layers), kernel 2 on
-    stacks 2-4 (10 layers); cosine against the float32 68M encoder."""
+    """One bfloat16 Zipformer-68M request, timed in turns against the same
+    request with layer_kernel="never" (every layer the plain bf16 layer with
+    kernel 2); then one encoder forward with the counts at 0, under "auto"
+    and under "always": kernel 4 on all six stacks (16 layers; stacks 2-4 in
+    two column tiles of their nonlin attends), kernel 2 never; cosine
+    against the float32 68M encoder. Returns kernel 4's launches in the
+    "auto" forward."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
@@ -1572,44 +1714,112 @@ def bf16_68m(model68, model68_16, audio, path):
         fbank_batch,
     )
 
-    cfg = model68_16.zip_cfg
+    enc16 = model68_16.encoder
+    cfg = enc16.cfg
     t_ds = [-(-1646 // ds) for ds in cfg.downsampling_factor]
     kernel_stacks = [i for i in range(6) if use_layer_kernel(cfg, i, t_ds[i], "cuda")]
-    assert kernel_stacks == [0, 1, 5], kernel_stacks
-    attention.launches = encoder_layer.launches = 0
-    t0 = time.perf_counter()
-    res = TranscriberPipeline(path, model68_16, config={}).run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log(f"default path: bf16 68M request wall {wall:.3f} s, vad {res['timing']['vad']:.3f} s, "
-        f"segments {len(res['segments'])}, launches kernel 4 {encoder_layer.launches} "
-        f"kernel 2 {attention.launches} ({card()})")
+    assert kernel_stacks == list(range(6)), kernel_stacks
+
+    def request(layer_kernel):
+        enc16.cfg = dataclasses.replace(cfg, layer_kernel=layer_kernel)
+        try:
+            attention.launches = encoder_layer.launches = 0
+            t0 = time.perf_counter()
+            res = TranscriberPipeline(path, model68_16, config={}).run()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0, res, encoder_layer.launches,
+                    attention.launches)
+        finally:
+            enc16.cfg = cfg
+
+    wall, res, k4, k2 = request("auto")
+    log(f"default path: bf16 68M request wall {wall:.3f} s (first), vad "
+        f"{res['timing']['vad']:.3f} s, segments {len(res['segments'])}, launches kernel 4 "
+        f"{k4} kernel 2 {k2} ({card()})")
     assert res["segments"], "bf16 68M: no words"
+    assert k2 == 0 and k4 > 0, "bf16 68M: the request left kernel 4"
+    turns = {"auto": [], "never": []}
+    for who in ("auto", "never", "never", "auto"):
+        wall, res_t, k4, k2 = request(who)
+        turns[who].append(wall)
+        assert (k4 > 0 and k2 == 0) if who == "auto" else (k4 == 0 and k2 > 0), (who, k4, k2)
+        assert res_t["segments"], f"bf16 68M {who}: no words"
+    log(f"default path: bf16 68M request wall, in turns (auto, never, never, auto): kernel 4 "
+        f"on every layer {turns['auto'][0]:.3f} / {turns['auto'][1]:.3f} s, "
+        f'layer_kernel="never" (plain bf16 layers, kernel 2) {turns["never"][0]:.3f} / '
+        f"{turns['never'][1]:.3f} s ({card()})")
 
     spans = [(s, min(s + 30 * SR, len(audio)))
              for s in range(0, len(audio) - 3 * SR, 27 * SR)]
     batch, lens = BatchedChunkDecoder(model68_16)._build_batch(
         audio, spans + [(0, 1)] * (SLICE_BATCH - len(spans)))
     dev = model68_16.device
+    layers = cfg.num_encoder_layers
+    want = {"kernel 4": sum(layers), "kernel 2": 0}
     with torch.no_grad():
         feats = fbank_batch(torch.from_numpy(batch).to(dev))
         n = torch.from_numpy((lens + 80) // 160).to(dev)
-        attention.launches = encoder_layer.launches = 0
-        e16, l16 = model68_16.encoder(feats, n)
-        torch.cuda.synchronize()
-        per_forward = {"kernel 4": encoder_layer.launches, "kernel 2": attention.launches}
         e32, l32 = model68.encoder(feats, n)
-    layers = cfg.num_encoder_layers
-    want = {"kernel 4": sum(layers[i] for i in kernel_stacks),
-            "kernel 2": sum(layers[i] for i in range(6) if i not in kernel_stacks)}
-    cos = [float(torch.nn.functional.cosine_similarity(
-        e16[i, :ln].flatten(), e32[i, :ln].flatten(), dim=0))
-        for i, ln in enumerate(l32.tolist()[: len(spans)])]
-    log(f"default path: bf16 68M forward: launches {per_forward} (kernel 4 on stacks "
-        f"{kernel_stacks}, kernel 2 on the other 3; expected {want}); encoder cosine vs "
-        f"float32 {[round(c, 6) for c in cos]}")
-    assert per_forward == want, "bf16 68M: the gate routed stacks elsewhere"
-    assert torch.equal(l16, l32) and min(cos) >= COSINE_GATE, "bf16 68M far from float32"
+        for layer_kernel in ("auto", "always"):
+            enc16.cfg = dataclasses.replace(cfg, layer_kernel=layer_kernel)
+            try:
+                attention.launches = encoder_layer.launches = 0
+                e16, l16 = enc16(feats, n)
+                torch.cuda.synchronize()
+                per_forward = {"kernel 4": encoder_layer.launches,
+                               "kernel 2": attention.launches}
+            finally:
+                enc16.cfg = cfg
+            if layer_kernel == "auto":
+                auto_launches = encoder_layer.launches
+            cos = [float(torch.nn.functional.cosine_similarity(
+                e16[i, :ln].flatten(), e32[i, :ln].flatten(), dim=0))
+                for i, ln in enumerate(l32.tolist()[: len(spans)])]
+            log(f'default path: bf16 68M forward, layer_kernel="{layer_kernel}": launches '
+                f"{per_forward} (kernel 4 on stacks {kernel_stacks}; expected {want}); "
+                f"encoder cosine vs float32 {[round(c, 6) for c in cos]}")
+            assert per_forward == want, f"bf16 68M {layer_kernel}: a layer left kernel 4"
+            assert torch.equal(l16, l32) and min(cos) >= COSINE_GATE, \
+                "bf16 68M far from float32"
+    return auto_launches
+
+
+def cli_beams(model, model_dir, path):
+    """`cli transcribe --beam 16` and `--beam 32` in-process on the card: the
+    beam kernel's caps 16 and 32 from the user's entry point. Each writes
+    words, its words equal an in-memory pipeline run at that beam, and its
+    beam launches are counted."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search_cuda
+
+    counts = {}
+    for beam in (16, 32):
+        beam_search_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["transcribe", path, "--model", model_dir, "--beam", str(beam)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[f"beam_search_beam{beam}"] = beam_search_cuda.launches
+        assert rc == 0, f"cli --beam {beam} exit {rc}: {err[-2000:]}"
+        with open(path + ".asr.json", encoding="utf-8") as f:
+            data = json.load(f)
+        got = [(w["text"], w.get("start"), w.get("end"))
+               for seg in data["segments"] for w in seg.get("raw_words", [])]
+        saved = model.beam_size
+        model.beam_size = beam
+        try:
+            want = _words(TranscriberPipeline(path, model, config={}).run()["segments"])
+        finally:
+            model.beam_size = saved
+        log(f"default path: cli --beam {beam} wall {wall:.3f} s, {len(got)} words, beam "
+            f"launches {counts[f'beam_search_beam{beam}']}, words equal to an in-memory run "
+            f"at beam {beam}: {got == want} ({card()})")
+        assert data["text"] and got, f"cli --beam {beam}: no words"
+        assert got == want, f"cli --beam {beam}: words differ from the in-memory run"
+        assert counts[f"beam_search_beam{beam}"] > 0, f"cli --beam {beam}: no beam launch"
+    return counts
 
 
 def resume_twice(model, path):
@@ -1708,7 +1918,8 @@ def phase_default_path(dev, model, model68, model68_16, tmp):
         f"vad {res['timing']['vad']:.3f} s, words {len(_words(res['segments']))} ({card()})")
     assert res["segments"], "ROVER: no words"
 
-    bf16_68m(model68, model68_16, audio, path)
+    launches["encoder_layer_bf16_68m"] = bf16_68m(model68, model68_16, audio, path)
+    launches.update(cli_beams(model, model_dir, path))
     golden = os.path.join(tmp, "golden_6s.wav")
     write_wav(golden, golden_audio(), SR)
     resume_twice(model, golden)
@@ -4371,8 +4582,11 @@ def main(argv=None):
     kernels = [check_fbank(dev), check_attention(dev, model, parent),
                check_beam(dev, model, parent), check_encoder_layer(dev, model16, parent),
                check_beam_hotwords(dev, model16, tables, parent),
-               check_attention_bf16band(dev, model)]
+               check_attention_bf16band(dev, model),
+               check_encoder_layer(dev, model68_16, None, LAYER_SHAPES_68M,
+                                   "encoder_layer_bf16_68m", plain_layer=True)]
     check_beam_e512(dev, model68)
+    kernels += check_beam_caps(dev, model, model68, tables)
     done("kernel parity")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)

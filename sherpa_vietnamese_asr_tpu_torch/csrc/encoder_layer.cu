@@ -42,6 +42,20 @@
 // largest remaining part. The wrapper allocates every workspace and picks
 // each product's tile plan (ops/encoder_layer.tile_plan); this file
 // allocates nothing and launches the plans it is given.
+//
+// Attend widths: a self-attention head is one 16-column tile; the nonlin
+// attend (one head of hna = 3 D / 4 columns) is one tile of up to 192
+// columns (12 wgmma n16 chunks, 96 accumulators a thread), or, from 193 to
+// 384 columns (Zipformer-68M's stacks 2-4: 288 and 384), two equal column
+// tiles, numbered column-fastest like a linear's. Two tiles stream the [T,
+// T] weight plane twice, but the two tiles of a row tile are neighbours in
+// tile order and run on neighbouring blocks at the same time, so the second
+// read mostly hits L2. The alternative, the columns split over the two
+// consumer warpgroups, reads the weights once, but each warpgroup would then
+// run both m64 row halves of its columns: a new warpgroup split, A
+// addressing and epilogue map. The column tiles keep the 192-column
+// instantiation, and every attend of 192 columns or fewer (all of
+// Zipformer-30M) runs as before.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -318,8 +332,9 @@ product_kernel(const __grid_constant__ CUtensorMap tma, const __grid_constant__ 
           const int plane = z1 * p.a_z1 + z2 * p.a_z2;
           tma_3d(sa, &tma, &full[stage], mt * kBM, kt * kBK, plane);
           tma_3d(sa + kATile / 2, &tma, &full[stage], mt * kBM + 64, kt * kBK, plane);
-          // a box starts 16-byte aligned: at the head's column rounded down to 8
-          const int col = z2 * p.b_col & ~7;
+          // a box starts 16-byte aligned: at the head's column rounded down
+          // to 8, plus the column tile's first column
+          const int col = (z2 * p.b_col & ~7) + nt * nj * 16;
           for (int j = 0; j < nj; ++j)
             tma_3d(sb + j * 16 * kBK * 2, &tmb, &full[stage], col + 16 * j, kt * kBK, z1);
         } else {
@@ -500,16 +515,20 @@ cudaError_t linear(const Plan& pl, int epi, const bf16* a, const bf16* wt, int M
 // An attend over `batches` = B * zdiv planes: out[b, t, h * c_cols + c]
 // (c < N) = sum_s w[b * a_z1 + h * a_z2][s][t] v[b][s][h * b_col + c], with
 // w [planes, T, T] and v [B, T, vcols] bf16. kStore (the heads of a
-// self-attention, N = vd <= 16) or kYGate (the nonlin head, N <= 192).
-constexpr int kNonlinChunks = 12;
+// self-attention, N = vd <= 16, one tile) or kYGate (the nonlin head, N <=
+// 384: one tile of up to 192 columns or two tiles of pl.bn each).
+constexpr int kNonlinChunks = 12;  // 192 columns a tile
+constexpr int kNonlinTiles = 2;
 
 cudaError_t attend(const Plan& pl, int epi, const bf16* w, int planes, const bf16* v,
                    int vcols, int B, int T, int N, ProdArgs p, int sms, cudaStream_t st) {
   // head h's columns start (h b_col) % 8 into its tile (even: pairs stay whole)
   int reach = N;
   for (int h = 0; h < p.zdiv; ++h) reach = h * p.b_col % 8 + N > reach ? h * p.b_col % 8 + N : reach;
-  if (!plan_ok(pl, epi == kYGate ? kNonlinChunks : 1) || pl.nw != 16 || pl.bn < reach ||
-      N % 2 != 0 || p.b_col % 2 != 0 || T % 8 != 0 || vcols % 8 != 0)
+  const int n_tiles = pl.bn > 0 ? (reach + pl.bn - 1) / pl.bn : 0;
+  if (!plan_ok(pl, epi == kYGate ? kNonlinChunks : 1) || pl.nw != 16 ||
+      n_tiles > (epi == kYGate ? kNonlinTiles : 1) || N % 2 != 0 || p.b_col % 2 != 0 ||
+      T % 8 != 0 || vcols % 8 != 0)
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   const cuuint64_t adims[3] = {(cuuint64_t)T, (cuuint64_t)T, (cuuint64_t)planes};
@@ -523,8 +542,8 @@ cudaError_t attend(const Plan& pl, int epi, const bf16* w, int planes, const bf1
   p.N = N;
   p.K = T;
   p.m_tiles = (T + kBM - 1) / kBM;
-  p.n_tiles = 1;
-  p.tiles = p.m_tiles * B * p.zdiv;
+  p.n_tiles = n_tiles;
+  p.tiles = p.m_tiles * n_tiles * B * p.zdiv;
   p.nj = pl.bn / 16;
   p.stages = pl.stages;
   p.c_rows = T;

@@ -507,10 +507,11 @@ def use_layer_kernel(cfg: ZipformerConfig, stack_idx: int, t_ds: int,
     kernel holds. Its TPU conditions (a VMEM estimate, heads > 4, t_pad <
     384) are limits of the TPU's VMEM and per-block overhead, not of this
     card; here "auto" asks the kernel's own tile plan (ops/encoder_layer.
-    plan_error) whether it takes every product of the stack's layer. At
-    Zipformer-30M it takes all six stacks; at Zipformer-68M not stacks 2-4,
-    whose nonlin attend is 288 or 384 columns wide (at most NONLIN_MAX_N):
-    they run the plain bf16 layer with the attention kernel.
+    plan_error) whether it takes every product of the stack's layer. It
+    takes all six stacks of Zipformer-30M and of Zipformer-68M (whose
+    stacks 2-4 have nonlin attends of 288 and 384 columns, in two column
+    tiles); a stack it refuses runs the plain bf16 layer with the attention
+    kernel.
     """
     if cfg.layer_kernel == "never":
         return False

@@ -24,19 +24,44 @@ from sherpa_vietnamese_asr_tpu_torch.ops.beam_search import (
 launches = 0
 hotword_launches = 0
 
-MAX_BEAM = 8
+CAPS = (8, 16, 32)  # the kernel's beam caps, one instantiation each
+MAX_BEAM = CAPS[-1]
 CLUSTER = 8  # blocks per chunk, each owning a 1/8 slice of the vocab
-_SCRATCH = 8 * 64 * (MAX_BEAM + 1)  # the kernel's partial-sum floats
-_SMEM_LIMIT = 227 * 1024 - 4 * 1024  # less the kernel's static shared memory
+_BLOCK_SMEM = 232448  # 227 KB of shared memory a block on an H100
 
 
-def _kernel_smem_bytes(t, e, d, j, v) -> int:
-    """Dynamic shared memory of one block: its [beam, ceil(V/8)] logit
-    slice, the [J, beam] hidden layer, the [D, beam] decoder rows, partial
-    sums, the encoder frame, and the [2, beam, T] uint16 token histories
-    that only the cluster's leader uses."""
+def beam_cap(beam_size) -> int:
+    """The smallest beam cap of the kernel that holds beam_size."""
+    if not 1 <= beam_size <= MAX_BEAM:
+        raise ValueError(f"beam kernel takes beam_size 1..{MAX_BEAM}, got {beam_size}")
+    return next(c for c in CAPS if c >= beam_size)
+
+
+def _smem_limit(cap) -> int:
+    """Dynamic shared memory a block may take at `cap`: 227 KB less 512
+    bytes a beam of the cap for the kernel's static shared memory (2.1, 4.4
+    and 9.4 KB)."""
+    return _BLOCK_SMEM - 512 * cap
+
+
+def _history_global(cap) -> bool:
+    """Whether the leader's token histories leave shared memory for the
+    `hist` workspace (caps past 16)."""
+    return cap > 16
+
+
+def _kernel_smem_bytes(t, e, d, j, v, cap=8) -> int:
+    """Dynamic shared memory of one block at beam cap `cap`: its [cap,
+    ceil(V/8)] logit slice, the [J, cap] hidden layer, the [D, cap] decoder
+    rows, partial sums, the encoder frame, and the [2, cap, T] uint16 token
+    histories that only the cluster's leader uses. Past cap 16 the histories
+    are a global workspace and the logit slice shares the decoder rows'
+    space."""
     w = -(-v // CLUSTER)
-    return (MAX_BEAM * (w + j + d) + _SCRATCH + e) * 4 + 2 * MAX_BEAM * t * 2
+    scratch = 8 * 64 * (cap + 1)  # the kernel's partial-sum floats
+    if _history_global(cap):
+        return (cap * (j + max(d, w)) + scratch + e) * 4
+    return (cap * (w + j + d) + scratch + e) * 4 + 2 * cap * t * 2
 
 
 def _hotword_args(hw, dev, v):
@@ -70,8 +95,7 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
     v, d, j = cfg.vocab_size, cfg.decoder_dim, cfg.joiner_dim
     conv_w = decoder.conv_weight.detach()
     ipg, k = conv_w.shape[1], conv_w.shape[2]
-    if not 1 <= beam_size <= MAX_BEAM:
-        raise ValueError(f"beam kernel takes beam_size 1..{MAX_BEAM}, got {beam_size}")
+    cap = beam_cap(beam_size)
     if not 2 <= v <= 65536 or k > 4 or k != cfg.context_size:
         raise ValueError("beam kernel: vocab must be 2..65536 and context_size <= 4")
     if enc_out.dtype != torch.float32 or e != cfg.encoder_out_dim:
@@ -79,10 +103,10 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
     if enc_lens.shape != (b,):
         raise ValueError("enc_lens must be [B]")
     hw_ptrs, s_hw = _hotword_args(hw, dev, v)
-    smem = _kernel_smem_bytes(t, e, d, j, v)
-    if smem > _SMEM_LIMIT:
+    smem = _kernel_smem_bytes(t, e, d, j, v, cap)
+    if smem > _smem_limit(cap):
         raise ValueError(f"beam kernel state ({smem} B) exceeds shared memory "
-                         f"at T={t}, V={v}")
+                         f"at T={t}, V={v}, beam cap {cap}")
     f32, i32 = torch.float32, torch.int32
     # Weights in the kernel's layout, already contiguous float32; the
     # joiner's transposed copies are cached on the module.
@@ -97,6 +121,9 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
             torch.empty((b, t, beam_size), dtype=i32, device=dev),
             torch.empty((b, t, beam_size), dtype=f32, device=dev),
             torch.empty((b, t, beam_size, 4), dtype=f32, device=dev)]
+    # The leader's token histories past cap 16, rows padded to 8 tokens.
+    hist = (torch.empty((b, 2, cap, -(-t // 8) * 8), dtype=torch.int16, device=dev)
+            if _history_global(cap) else None)
     res = BeamResult(
         tokens=torch.empty((b, t), dtype=i32, device=dev),
         frames=torch.empty((b, t), dtype=i32, device=dev),
@@ -116,8 +143,8 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
             res.num_tokens, res.total_logp]
     fn = entry or cuda_lib.library().svt_beam_search
     status = fn(
-        *[x.data_ptr() for x in args], *hw_ptrs,
-        *[x.data_ptr() for x in recs + outs],
+        *[x.data_ptr() for x in args], *hw_ptrs, *[x.data_ptr() for x in recs],
+        None if hist is None else hist.data_ptr(), *[x.data_ptr() for x in outs],
         b, t, e, d, ipg, k, j, v, beam_size, cfg.blank_id, cfg.unk_id, s_hw,
         float(tsallis_max), float(max_entropy), cuda_lib.stream(dev))
     cuda_lib.check(status, "svt_beam_search")
@@ -137,8 +164,9 @@ def beam_search_batch_cuda(enc_out, enc_lens, decoder: Decoder,
     ops/beam_search.beam_search_batch.
 
     enc_out: [N, T, E] float32; enc_lens: [N]. CPU tensors run the plain
-    twin; CUDA tensors launch the kernel (beam_size 1..8; hotword tables on
-    the same device, any S with S * V < 2^31).
+    twin; CUDA tensors launch the kernel (beam_size 1..MAX_BEAM, through
+    the smallest of CAPS that holds it; hotword tables on the same device,
+    any S with S * V < 2^31), or raise.
     """
     if enc_out.device.type == "cpu":
         return beam_search_batch(enc_out, enc_lens, decoder, joiner, cfg,

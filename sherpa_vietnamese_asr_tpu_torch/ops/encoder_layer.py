@@ -42,13 +42,15 @@ LINEAR_WEIGHTS = (0, 2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26, 30, 32, 36)
 # csrc/encoder_layer.cu product_kernel: 128-row tiles (two consumer
 # warpgroups of wgmma m64), stages of 64 deep, 227 KB of shared memory a
 # block. A linear's tile is one of LINEAR_BN columns wide, in m64n64k16
-# steps; an attend's is up to SA_MAX_N or NONLIN_MAX_N columns in m64n16k16
-# steps (its values arrive as 16-column chunks).
+# steps; an attend's is up to SA_MAX_N or NONLIN_TILE_N columns in
+# m64n16k16 steps (its values arrive as 16-column chunks), and a nonlin
+# attend up to NONLIN_MAX_N columns wide takes two column tiles.
 BM, BK = 128, 64
 LINEAR_BN, LINEAR_NW, ATTEND_NW = (64, 128, 192, 256), 64, 16
 MAX_STAGES = 8
 SMEM_LIMIT = 232448
-SA_MAX_N, NONLIN_MAX_N = 16, 192  # attend widths the kernel is built for
+SA_MAX_N, NONLIN_TILE_N = 16, 192  # attend tile widths the kernel is built for
+NONLIN_MAX_N = 2 * NONLIN_TILE_N   # the nonlin attend in at most two tiles
 
 # Kernel launches of encoder_layer() on CUDA tensors.
 launches = 0
@@ -123,10 +125,12 @@ def layer_shape(flat, x_shape, heads, qd, pd, vd):
 def tile_plan(product, sms=132):
     """The tile plan of one product on a card with `sms` multiprocessors.
 
-    An attend takes all its columns in one tile (rounded up to the wgmma
-    width 16): it streams the weights once. A self-attention head's value
-    box starts 16-byte aligned, at column h n rounded down to 8, so its
-    columns sit head_shift(h, n) into the tile. A linear takes the width of
+    An attend of up to NONLIN_TILE_N columns takes them all in one tile
+    (rounded up to the wgmma width 16): it streams the weights once. A wider
+    nonlin attend (Zipformer-68M's 288 and 384) takes two equal tiles, each
+    streaming the weights. A self-attention head's value box starts 16-byte
+    aligned, at column h n rounded down to 8, so its columns sit
+    head_shift(h, n) into the tile. A linear takes the width of
     LINEAR_BN with the least waves x (width + 64), the narrower on a tie: a
     tile's time grows with its width plus a fixed part (its A tile and
     epilogue), and the grid runs in waves of `sms` tiles. On an H100, at
@@ -140,7 +144,8 @@ def tile_plan(product, sms=132):
     n = product.n
     if product.attend:
         reach = max(head_shift(h, n) + n for h in range(product.zdiv))
-        bn, nw = -(-reach // 16) * 16, ATTEND_NW
+        tiles = -(-reach // NONLIN_TILE_N)
+        bn, nw = -(-reach // (16 * tiles)) * 16, ATTEND_NW
     else:
         m_tiles = -(-product.m // BM) * product.batches
         bn = min(LINEAR_BN, key=lambda w: (-(-m_tiles * -(-n // w) // sms) * (w + 64), w))
@@ -151,9 +156,10 @@ def tile_plan(product, sms=132):
 
 def plan_error(product):
     """Why the kernel cannot take `product`, or None if it can: an attend
-    is at most SA_MAX_N (a self-attention head) or NONLIN_MAX_N (the nonlin
-    attend) columns wide, even, and its heads' columns fit one tile; a
-    linear needs d_in a multiple of 8 and d_out even."""
+    is at most SA_MAX_N (a self-attention head, one tile) or NONLIN_MAX_N
+    (the nonlin attend, one or two tiles) columns wide, even, and a
+    self-attention's heads' columns fit one tile; a linear needs d_in a
+    multiple of 8 and d_out even."""
     n, k = product.n, product.k
     if product.attend:
         limit = SA_MAX_N if product.zdiv > 1 else NONLIN_MAX_N
@@ -195,10 +201,11 @@ def product_tiles(product, plan):
     """Mirror of product_kernel's walk: for each tile, in tile order, the
     output row and column that its first valid element goes to, its valid
     rows and columns, and the tile column of that first valid element (a
-    self-attention head's head_shift). Outputs: a linear's [m, n]; an
-    attend's [B * m, zdiv * n]."""
+    self-attention head's head_shift). Column tiles are numbered fastest,
+    for an attend too (a nonlin attend past NONLIN_TILE_N). Outputs: a
+    linear's [m, n]; an attend's [B * m, zdiv * n]."""
     m_tiles = -(-product.m // plan.bm)
-    n_tiles = 1 if product.attend else -(-product.n // plan.bn)
+    n_tiles = -(-product.n // plan.bn)
     c_rows = product.m if product.attend else 0
     c_cols = product.n if product.zdiv > 1 else 0
     tiles = []

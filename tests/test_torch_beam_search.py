@@ -71,7 +71,7 @@ def _assert_same(got, ref, atol=1e-4):
                                atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("beam", [1, 4, 8])
+@pytest.mark.parametrize("beam", [1, 4, 8, 12, 16, 32])
 def test_parity_with_jax_scan_and_pallas(beam):
     import jax.numpy as jnp
 
@@ -234,8 +234,10 @@ def test_cpu_tensor_runs_plain_twin_without_launch(monkeypatch):
 # into the row's lse, takes its slice's entropy, Tsallis and top-2 terms and
 # its local exact top-beam (first per warp of 32 threads, then over the
 # warps' lists); the leader merges the C local lists and the metric
-# partials. The model follows those steps in float32 and is held against the
-# plain twin's stable sort and metrics.
+# partials. A beam runs in the kernel's smallest beam cap that holds it (8,
+# 16 or 32), which sets the threads a row of the warp scan. The model
+# follows those steps in float32 and is held against the plain twin's
+# stable sort and metrics.
 
 _INT_MAX = 2 ** 31 - 1
 _WARPS = 16  # 512 threads a block
@@ -271,6 +273,7 @@ def _split_top_beam(lp, logp, c):
     slice's local top-beam (per warp, then over the warps' lists), then the
     leader's merge of the C lists."""
     beam, v = lp.shape
+    row_threads = 512 // beam_search_cuda.beam_cap(beam)
     score_all = (lp + logp[:, None]).astype(np.float32)
     lists_s, lists_i = [], []
     for lo, hi in _slices(v, c):
@@ -278,8 +281,9 @@ def _split_top_beam(lp, logp, c):
         bb, col = np.divmod(np.arange(beam * width), max(width, 1))
         flat = bb * v + lo + col
         score = score_all[bb, lo + col]
-        # 64 threads a row: warp w scans row w // 2, columns (w % 2) * 32 + lane + 64k.
-        warp = bb * 2 + (col % 64) // 32
+        # row_threads a row: at cap 8 warp w scans row w // 2, columns (w %
+        # 2) * 32 + lane + 64k; at cap 32 a warp scans two rows, 16 lanes each.
+        warp = (bb * row_threads + col % row_threads) // 32
         ws, wi = zip(*[_top_passes(score[warp == k], flat[warp == k], beam)
                        for k in range(_WARPS)])
         s, i = _top_passes(np.concatenate(ws), np.concatenate(wi), beam)
@@ -348,12 +352,13 @@ def _frame_case(case, v, beam=8):
 @pytest.mark.parametrize("case", ["random", "ties_at_slice_boundaries",
                                   "exact_ties_whole_vocab", "first_frame"])
 @pytest.mark.parametrize("v", [2000, 1999, 7])
-@pytest.mark.parametrize("c", [1, 8])
-def test_cluster_split_schedule_matches_the_twin(c, v, case):
+@pytest.mark.parametrize("c,beam", [(1, 8), (8, 8), (8, 12), (8, 16), (8, 32)],
+                         ids=["1", "8", "8-beam12", "8-beam16", "8-beam32"])
+def test_cluster_split_schedule_matches_the_twin(c, beam, v, case):
     """The split top-beam is the twin's stable-sort order exactly (ties to the
     lowest flat index across slices and rows; -1e30 parents at frame 0), and
-    the combined metrics and log-probs are the twin's within 1e-6."""
-    beam = 8
+    the combined metrics and log-probs are the twin's within 1e-6, at beam 8
+    and past it (the caps 16 and 32, and a beam of 12 in cap 16)."""
     logits, logp = _frame_case(case, v, beam)
     log_probs = torch.log_softmax(torch.from_numpy(logits), dim=-1)
     acc = (log_probs + torch.from_numpy(logp)[:, None]).reshape(-1)
@@ -367,3 +372,35 @@ def test_cluster_split_schedule_matches_the_twin(c, v, case):
     np.testing.assert_allclose(lp, lp_twin, atol=1e-6, rtol=0)
     if case in ("ties_at_slice_boundaries", "exact_ties_whole_vocab"):
         assert (met[:, 1] == 0).all(), "margin must be 0 on an exact tie"
+
+
+def test_beam_caps_fit_shared_memory_and_raise_past_the_largest():
+    """Each beam runs in the smallest cap that holds it; every cap's block
+    state fits shared memory at a 33 s chunk (T 823, V 2000) at Zipformer-
+    30M's joiner input (E 256) and 68M's (E 512), J = D = 512; beam 8 keeps
+    the layout it had (its byte count and limit); a beam past the largest
+    cap raises in the wrapper, naming the beam, before any launch."""
+    caps = beam_search_cuda.CAPS
+    assert caps == (8, 16, 32) and beam_search_cuda.MAX_BEAM == 32
+    for beam in range(1, 33):
+        cap = beam_search_cuda.beam_cap(beam)
+        assert beam <= cap and all(c < beam for c in caps if c < cap)
+    for cap in caps:
+        for e in (256, 512):
+            smem = beam_search_cuda._kernel_smem_bytes(823, e, 512, 512, 2000, cap)
+            assert 0 < smem <= beam_search_cuda._smem_limit(cap), (cap, e, smem)
+    # cap 8: as before this change (87,584 B at E 512 against 228,352 B)
+    assert beam_search_cuda._kernel_smem_bytes(823, 512, 512, 512, 2000) == 87584
+    assert beam_search_cuda._smem_limit(8) == 227 * 1024 - 4 * 1024
+    # past cap 16 the token histories leave shared memory: no T term
+    assert beam_search_cuda._kernel_smem_bytes(64, 512, 512, 512, 2000, 32) == \
+        beam_search_cuda._kernel_smem_bytes(4000, 512, 512, 512, 2000, 32)
+    for bad in (0, 33, 64):
+        with pytest.raises(ValueError, match=f"got {bad}"):
+            beam_search_cuda.beam_cap(bad)
+    jcfg, jdec, jjoi = _jax_rnnt(32)
+    cfg, dec, joi = _port_rnnt(jcfg, jdec, jjoi)
+    enc = torch.zeros((1, 4, 256), device="meta")
+    with pytest.raises(ValueError, match="got 33"):
+        beam_search_cuda._beam_search_cuda(enc, torch.ones(1, dtype=torch.int32), dec, joi,
+                                           cfg, 33, None)

@@ -36,6 +36,12 @@ TINY = dict(num_encoder_layers=(1,), downsampling_factor=(1,), encoder_dim=(64,)
 TWO_STACKS = dict(TINY, num_encoder_layers=(2, 2), downsampling_factor=(1, 2),
                   encoder_dim=(64, 64), ffn_dim=(96, 96), num_heads=(2, 2),
                   cnn_module_kernel=(15, 15))
+# One layer at Zipformer-68M's widest stacks (head dims of both models,
+# conv kernel 15, a narrow ffn): a nonlin attend of 288 columns (D 384, H 4)
+# and of 384 columns (D 512, H 8), the two column tiles of the kernel.
+WIDE = {name: dict(TINY, encoder_dim=(d,), num_heads=(h,), ffn_dim=(96,),
+                   query_head_dim=32, pos_head_dim=4, value_head_dim=12, pos_dim=48)
+        for name, d, h in (("d384", 384, 4), ("d512", 512, 8))}
 LAYER_T, LAYER_TP = 100, 128
 LAYER_LENS = [100, 61, 17, 0]
 ENC_LENS = [220, 173, 64]
@@ -44,6 +50,16 @@ ENC_LENS = [220, 173, 64]
 # order alone gives at most 4.3e-5 and 3.8e-3 (7.7e-4 and 7.2e-3 on other
 # seeds); a rel-pos term 1% off gives at least 2.6e-3 and 2.2e-2.
 GATE_MEAN, GATE_MAX = 1.5e-3, 1.2e-2
+# The same gate at the WIDE layers, with the max of chip_smoke.py's
+# full-width kernel-vs-twin gate. From D 128 on, one bf16 rounding that
+# summation order flips early in a chunk reaches every row through the
+# attends and flips later roundings, so a chunk either matches almost
+# exactly or differs in most elements by under one bf16 ulp. Measured on
+# these inputs: mean at most 1.2e-3 and max at most 2.1e-2 of the scale
+# (over 1.2e-2 in both layers); the twin with a rel-pos term 1% off, a mean
+# of 2.8e-3 to 3.2e-3 on the chunks with valid rows (on another seed, sound
+# 1.3e-3 and 1.8e-2, faulted 2.8e-3 to 4.7e-3).
+WIDE_GATE_MAX = 3e-2
 
 _REFERENCE = r'''
 import dataclasses, json, sys
@@ -58,6 +74,8 @@ spec = json.loads(sys.argv[1])
 for key in ("tiny", "two"):
     spec[key] = {k: tuple(v) if isinstance(v, list) else v
                  for k, v in spec[key].items()}
+spec["wide"] = {name: {k: tuple(v) if isinstance(v, list) else v for k, v in w.items()}
+                for name, w in spec["wide"].items()}
 out = {}
 
 
@@ -105,6 +123,21 @@ out["enc_out"], out["enc_out_lens"] = np.asarray(enc), np.asarray(enc_out_lens)
 out["enc_feats"] = feats
 for path, leaf in jax.tree_util.tree_flatten_with_path(params2)[0]:
     out["q/" + jax.tree_util.keystr(path)] = np.asarray(leaf)
+
+for seed, (name, wide) in enumerate(spec["wide"].items(), start=10):
+    wcfg = Z.ZipformerConfig(**wide)
+    wparams = perturbed(wcfg, seed)
+    d = wcfg.encoder_dim[0]
+    wx = np.zeros((len(lens), tp, d), np.float32)
+    wx[:, :t] = rng.standard_normal((len(lens), t, d))
+    wrev = Z._padded_rev_pos_emb(t, tp, wcfg.pos_dim)
+    with pltpu.force_tpu_interpret_mode():
+        out[name + "_out"] = np.asarray(encoder_layer_pallas(
+            jax.tree.map(jnp.asarray, wparams["stacks"][0]["layers"][0]), jnp.asarray(wx),
+            jnp.asarray(wrev), jnp.asarray(lens), wcfg.num_heads[0], wcfg))
+    out[name + "_x"], out[name + "_rev"] = wx, wrev
+    for path, leaf in jax.tree_util.tree_flatten_with_path(wparams)[0]:
+        out[name + "/" + jax.tree_util.keystr(path)] = np.asarray(leaf)
 np.savez(spec["out"], **out)
 '''
 
@@ -123,7 +156,7 @@ def reference(tmp_path_factory):
     """The JAX package's kernel outputs (interpret mode, excess precision
     off) and the weights they used, from one subprocess."""
     path = str(tmp_path_factory.mktemp("layer_ref") / "ref.npz")
-    spec = {"tiny": TINY, "two": TWO_STACKS, "t": LAYER_T, "tp": LAYER_TP,
+    spec = {"tiny": TINY, "two": TWO_STACKS, "wide": WIDE, "t": LAYER_T, "tp": LAYER_TP,
             "lens": LAYER_LENS, "enc_lens": ENC_LENS, "out": path}
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
                SVT_DISABLE_COMPILE_CACHE="1",
@@ -164,13 +197,13 @@ def _port_layer(params, spec):
     return layer
 
 
-def _layer_case(reference):
-    params = _tree(reference, "p/", _jax_params_like(TINY, 0))
-    layer = _port_layer(params, TINY)
-    got = el.encoder_layer(layer, torch.from_numpy(reference["layer_x"]),
-                           torch.from_numpy(reference["layer_rev"]),
+def _layer_case(reference, name="layer", spec=TINY, prefix="p/", seed=0):
+    params = _tree(reference, prefix, _jax_params_like(spec, seed))
+    layer = _port_layer(params, spec)
+    got = el.encoder_layer(layer, torch.from_numpy(reference[name + "_x"]),
+                           torch.from_numpy(reference[name + "_rev"]),
                            torch.tensor(LAYER_LENS, dtype=torch.int32))
-    return got.numpy(), reference["layer_out"]
+    return got.numpy(), reference[name + "_out"]
 
 
 def _gate(got, ref):
@@ -184,8 +217,8 @@ def _gate(got, ref):
     return out
 
 
-def _passes(errs):
-    return all(m <= GATE_MEAN and x <= GATE_MAX for m, x in errs)
+def _passes(errs, gate_max=GATE_MAX):
+    return all(m <= GATE_MEAN and x <= gate_max for m, x in errs)
 
 
 def test_layer_twin_matches_jax_kernel(reference):
@@ -194,6 +227,33 @@ def test_layer_twin_matches_jax_kernel(reference):
     assert got.shape == ref.shape and np.isfinite(got).all()
     errs = _gate(got, ref)
     assert _passes(errs), errs
+
+
+def _wide_case(reference, name):
+    return _layer_case(reference, name, WIDE[name], name + "/", 10 + list(WIDE).index(name))
+
+
+@pytest.mark.parametrize("name", WIDE)
+def test_layer_twin_matches_jax_kernel_at_68m_widths(reference, name):
+    """(a) at Zipformer-68M's stack 2-4 widths: D 384, H 4 (a nonlin attend
+    of 288 columns) and D 512, H 8 (384 columns), the widths the kernel
+    takes in two column tiles; T 100 -> T_pad 128, lens [100, 61, 17, 0];
+    GATE_MEAN and WIDE_GATE_MAX."""
+    assert 3 * WIDE[name]["encoder_dim"][0] // 4 > el.NONLIN_TILE_N
+    got, ref = _wide_case(reference, name)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    errs = _gate(got, ref)
+    assert _passes(errs, WIDE_GATE_MAX), errs
+
+
+@pytest.mark.parametrize("name", WIDE)
+def test_wide_gate_catches_a_rel_pos_fault(reference, monkeypatch, name):
+    """(d) at the WIDE layers: the gate of the test above fails for the
+    twin with a rel-pos term 1% off."""
+    rel = el.rel_pos_scores
+    monkeypatch.setattr(el, "rel_pos_scores", lambda pq, poslin: rel(pq, poslin) * 1.01)
+    got, ref = _wide_case(reference, name)
+    assert not _passes(_gate(got, ref), WIDE_GATE_MAX)
 
 
 def _skew_off_by_one(pq, poslin):
@@ -329,10 +389,10 @@ def test_cpu_tensor_runs_plain_twin_without_launch(monkeypatch):
 # ---------------------------------------------------------------------------
 # The product kernel's host-side contract (csrc/encoder_layer.cu
 # product_kernel): tile plans and the epilogue's register map, at the six
-# Zipformer-30M stack shapes (B 8, 33 s chunks) and the TINY shape above.
+# Zipformer-30M stack shapes (B 8, 33 s chunks), Zipformer-68M's stacks 2-4
+# and the TINY shape above.
 
-def _stack_shape(stack):
-    cfg = tz.ZIPFORMER_30M
+def _stack_shape(stack, cfg=tz.ZIPFORMER_30M):
     d, ff = cfg.encoder_dim[stack], cfg.ffn_dim[stack]
     t_pad = -(-(1646, 823, 412, 206, 412, 823)[stack] // el.R) * el.R
     return (8, t_pad, d, cfg.num_heads[stack], cfg.query_head_dim, cfg.pos_head_dim,
@@ -341,6 +401,8 @@ def _stack_shape(stack):
 
 LAYER_SHAPES = {f"stack{s}": _stack_shape(s) for s in range(6)}
 LAYER_SHAPES["tiny"] = (len(LAYER_LENS), LAYER_TP, 64, 2, 16, 4, 8, 48, 72, 96, 120)
+# Zipformer-68M's stacks 2-4: nonlin attends of 288 / 384 / 288 columns.
+LAYER_SHAPES.update({f"68m_stack{s}": _stack_shape(s, tz.ZIPFORMER_68M) for s in (2, 3, 4)})
 
 
 def _planned(shape):
@@ -355,7 +417,8 @@ def test_tile_plan_meets_the_kernels_constraints(shape):
     a thread), TMA (16-byte
     global strides and box starts, 128- or 32-byte swizzled inner boxes) and
     shared memory (a ring of at least 3 stages in 227 KB, tiles on 1024-byte
-    swizzle atoms); its column tiles cover the product's columns."""
+    swizzle atoms); its column tiles cover the product's columns (one for a
+    self-attention head, at most two for the nonlin attend)."""
     b, t_pad, d, h, qd, pd, vd, hna = shape[:8]
     planned = _planned(shape)
     assert [p.name for p, _ in planned][:4] == ["attn_in", "ff1_in", "ff1_out", "nonlin_in"]
@@ -373,11 +436,13 @@ def test_tile_plan_meets_the_kernels_constraints(shape):
         if p.attend:
             width = p.zdiv * p.n  # the value buffer's row: H vd or hna
             assert p.m == p.k == t_pad and p.batches == b * p.zdiv
-            assert pl.nw == 16 and pl.bn <= (16 if p.zdiv > 1 else 192)
+            assert pl.nw == 16 and pl.bn <= (16 if p.zdiv > 1 else el.NONLIN_TILE_N)
+            n_tiles = -(-p.n // pl.bn)
+            assert n_tiles <= (1 if p.zdiv > 1 else 2) and (n_tiles - 1) * pl.bn < p.n
             for head in range(p.zdiv):
                 start = head * p.n - el.head_shift(head, p.n)
                 assert start % 8 == 0 and start >= 0          # box starts 16-byte aligned
-                assert el.head_shift(head, p.n) + p.n <= pl.bn
+                assert el.head_shift(head, p.n) + p.n <= n_tiles * pl.bn
             strides = (2 * t_pad, 2 * t_pad * t_pad, 2 * width, 2 * t_pad * width)
             inner = (64 * 2, 16 * 2)                           # 128- and 32-byte swizzle
         else:
@@ -425,12 +490,13 @@ def test_epilogue_map_covers_each_output_once(shape):
 def test_tile_plan_raises_on_shapes_the_kernel_cannot_take():
     """A shape outside the kernel's plans raises in the wrapper (it never
     falls back): a value head wider than its 16-column tile, a nonlin
-    attention wider than 192, a linear's depth off the 16-byte TMA stride."""
+    attention wider than two 192-column tiles, a linear's depth off the
+    16-byte TMA stride."""
     shape = LAYER_SHAPES["tiny"]
     wide_heads = shape[:6] + (20,) + shape[7:]
     with pytest.raises(ValueError, match="sa1_attend"):
         _planned(wide_heads)
-    wide_nonlin = shape[:7] + (200,) + shape[8:]
+    wide_nonlin = shape[:7] + (400,) + shape[8:]
     with pytest.raises(ValueError, match="nonlin_attend"):
         _planned(wide_nonlin)
     odd_ff = shape[:8] + (76,) + shape[9:]

@@ -1,9 +1,13 @@
 # The bf16 tier's choice of the whole-layer kernel (kernel 4) per stack,
 # decided from the shapes by the kernel's own tile plan:
 #   * Zipformer-30M: every stack takes it on CUDA (t_ds of a 33 s chunk);
-#   * Zipformer-68M: stacks 2, 3 and 4 (d 384 / 512 / 384, a nonlin attend
-#     of 288 / 384 / 288 columns, over the kernel's 192) do not, and run the
-#     plain bf16 layer with the attention kernel; stacks 0, 1 and 5 do;
+#   * Zipformer-68M: every stack takes it too; stacks 2, 3 and 4 (d 384 /
+#     512 / 384) have nonlin attends of 288 / 384 / 288 columns, which the
+#     kernel runs in two column tiles;
+#   * "wide", a synthetic model at d 576 on every stack, has a nonlin attend
+#     of 432 columns, past the kernel's two tiles (NONLIN_MAX_N 384): no
+#     stack takes it, and those run the plain bf16 layer with the attention
+#     kernel;
 #   * a stack the gate sends to the kernel has a tile plan for every product.
 # Pure Python: no card, no kernel build.
 import dataclasses
@@ -14,13 +18,16 @@ from sherpa_vietnamese_asr_tpu_torch.models import zipformer as tz
 from sherpa_vietnamese_asr_tpu_torch.ops import encoder_layer as el
 
 T_DS = (1646, 823, 412, 206, 412, 823)  # a 33 s chunk's frames per stack
-TAKES = {"30m": (True,) * 6, "68m": (True, True, False, False, False, True)}
+CONFIGS = {"30m": tz.ZIPFORMER_30M, "68m": tz.ZIPFORMER_68M,
+           "wide": dataclasses.replace(tz.ZIPFORMER_68M, encoder_dim=(576,) * 6,
+                                       ffn_dim=(1536,) * 6)}
+TAKES = {"30m": (True,) * 6, "68m": (True,) * 6, "wide": (False,) * 6}
 
 
-@pytest.mark.parametrize("name", ["30m", "68m"])
+@pytest.mark.parametrize("name", ["30m", "68m", "wide"])
 @pytest.mark.parametrize("stack", range(6))
 def test_gate_follows_the_tile_plan(name, stack):
-    cfg = tz.ZIPFORMER_30M if name == "30m" else tz.ZIPFORMER_68M
+    cfg = CONFIGS[name]
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     takes = tz.use_layer_kernel(bf16, stack, T_DS[stack], "cuda")
     assert takes == TAKES[name][stack]
