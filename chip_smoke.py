@@ -26,13 +26,11 @@ Phases (any failure raises and the script exits non-zero):
      its gate; the beam kernel again at Zipformer-68M's joiner input (E 512);
      the whole-layer kernel at Zipformer-68M's stacks 2-4 (nonlin attends
      of 288 and 384 columns, two column tiles) with the same faults and
-     gate, beside the plain bf16 layer with kernel 2 at those shapes; the
-     beam kernel at beams 16 and 32 (its caps past 8) at E 256 and 512,
-     with and without hotwords, held to the host twin's spread on near-ties,
-     at B 1 too, with each cap's time;
+     gate, beside the plain bf16 layer with kernel 2 at those shapes;
      with --parent DIR, the attention, beam and layer kernels of
      the checkout in DIR timed against these in turns, both attention
-     kernels within the gate, the layer kernel's output bit-identical);
+     kernels within the gate, the layer kernel's output and the beam
+     kernel's (beam 8 here, 16, 17, 24 and 32 in phase 16) bit-identical);
   4. float32 slice: TranscriberPipeline(..., {"bypass_vad": True}).run() on
      three WAV files with a random-weight Zipformer-30M model (vocab 2000,
      beam 8, float32), checking the result contract and that every kernel of
@@ -61,8 +59,8 @@ Phases (any failure raises and the script exits non-zero):
      own single-model decode); one bfloat16 Zipformer-68M request, timed in
      turns against layer_kernel="never" (kernel 4 on all 16 layers of a
      forward and kernel 2 never, under "auto" and "always"; encoder cosine
-     against float32); the CLI `transcribe --beam 16` and `--beam 32`, each
-     giving an in-memory run's words; enable_resume stopped after the
+     against float32); the CLI `transcribe --beam N` at 16, 32, 33, 64 and
+     128, each giving an in-memory run's words; enable_resume stopped after the
      decode and run again on the golden file. Every wall time beside the
      card's name and power limit;
   8. diarization: a full-width PureDiarizer (PyanNet + ResNet34, random
@@ -157,6 +155,17 @@ Phases (any failure raises and the script exits non-zero):
      full-width PureDiarizer's two superblocks on 100 s and GecBert (full
      ViBERT, mini_batch 32 in pieces of 16 against 16) on the phase-9 text,
      each bit-identical over two replicas.
+ 16. beam past 8 (last, since its plain-twin runs leave torch.profiler
+     losing events): the beam kernel at beam 16 (its cap past 8) and the
+     row-tiled beam kernel at beams 32, 33, 64 and 128 at E 256 and 512,
+     with and without hotwords, held to the host twin's spread on
+     near-ties (the beams past 32 at E 256 token-identical with the joiner
+     sharpened, beam 33 also on the random joiner under the near-tie rule),
+     at B 1 too, the tiled kernel at vocab 48 (a beam of 64 past the first
+     frames' live candidates) and bit-identical to the caps at beams 8 and
+     16, with each beam's time around the wrapper and of the launch alone;
+     with --parent, cap 16 and the tiled kernel at beams 17, 24 (hotwords)
+     and 32 bit-identical to DIR's kernel (cap 32 at 17-32) in turns.
 Each phase prints its seconds. The line before the last is a JSON summary
 of the kernels, each with its bound (the least time the card could take
 for the same work, from this run's shapes and the card's published peaks),
@@ -202,6 +211,9 @@ LAYER_SHAPES = (  # (stack, t_ds) of Zipformer-30M at a 33 s chunk
 # attend widths.
 LAYER_SHAPES_68M = ((2, 412), (3, 206), (4, 412))
 BEAM_CAPS_LENS = [823, 402, 1, 0]  # B 4 of BEAM_LENS_823's mix: the twins' slow runs
+CAP_BEAMS = (8, 16)  # the beam kernel's caps
+BEAM_WIDE = (33, 64, 128)  # beams past 32, the TPU kernel's range: the row-tiled kernel
+BEAM_V48 = 48  # a vocab whose first frames hold fewer live candidates than a beam of 64
 # Whole-layer kernel vs its twin, over valid rows (all rows of the lens-0
 # chunk): mean and max |kernel - twin| as fractions of mean |twin|.
 # Measured at all six shapes with perturbed biases, norm and bypasses
@@ -759,10 +771,9 @@ def parent_entries(parent):
     from its csrc/ source into build/parent_kernels/ with the parent's nvcc
     flags, the three nvcc started together. Each entry point carries the
     parent's own argtypes (its cuda_lib.SIGNATURES): the beam kernel's
-    arguments are this one's (a parent from before the beam caps takes them
-    without the history workspace, which beams up to 8 leave null), the
-    attention and layer kernels' may not be (parent_attention,
-    parent_layer)."""
+    arguments are this one's, or those of the caps 8, 16 and 32 with their
+    history workspace (parent_caps), the attention and layer kernels' may
+    not be (parent_attention, parent_layer)."""
     import ctypes
     from pathlib import Path
 
@@ -795,15 +806,73 @@ def parent_entries(parent):
         fns[name] = fn
     log(f"parent kernels: built {pkg / 'csrc'} attention_weights.cu, beam_search.cu and "
         f"encoder_layer.cu in {time.perf_counter() - t0:.1f} s")
-    beam = fns["beam"]
-    if len(beam.argtypes) == len(cuda_lib.SIGNATURES["svt_beam_search"]) - 1:
-        fns["beam"] = lambda *a: beam(*a[:17], *a[18:])  # no `hist` (argument 17)
+    if len(fns["beam"].argtypes) == len(cuda_lib.SIGNATURES["svt_beam_search"]) + 1:
+        fns["beam"] = parent_caps(fns["beam"])
     return fns
+
+
+def parent_caps(entry):
+    """A stand-in for this wrapper's C entries (_beam_search_cuda's `entry`)
+    that calls `entry`, the beam caps 8, 16 and 32 of a parent whose 18th
+    argument is their token-history workspace `hist` ([B, 2, 32, T rounded
+    up to 8] int16 past beam 16, else null). The wrapper passes the caps'
+    arguments up to beam 16 and the tiled kernel's (its workspace and size
+    in the place of `hist`) past it, so beams 1-32 run the parent's caps."""
+    import torch
+
+    def call(*a):
+        rest = a[19:] if len(a) == len(entry.argtypes) + 1 else a[17:]
+        b, t, beam = rest[6], rest[7], rest[14]  # after the six outputs
+        hist = (torch.empty((b, 2, 32, -(-t // 8) * 8), dtype=torch.int16, device="cuda")
+                if beam > 16 else None)
+        # Freed on return, reused only by later work on the same stream.
+        return entry(*a[:17], None if hist is None else hist.data_ptr(), *rest)
+
+    return call
+
+
+def launch_ms(args, reps=3, tiled=False):
+    """Median ms of the beam kernel's launch alone (args: _beam_search_cuda's
+    first seven): CUDA events recorded just before and after the C entry's
+    call inside the wrapper, so the span holds the kernel and a launch's
+    microseconds but not the wrapper's checks and allocations: event time,
+    not a trace's device time. torch.profiler is not used here: in two
+    full runs of this script its windows over the beam kernel lost every
+    event, and later windows of the process went on losing events."""
+    import torch
+
+    from sherpa_vietnamese_asr_tpu_torch.ops import beam_search_cuda, cuda_lib
+
+    lib = cuda_lib.library()
+    tiled = tiled or beam_search_cuda.beam_cap(args[5]) == beam_search_cuda.TILED
+    c_entry = lib.svt_beam_search_tiled if tiled else lib.svt_beam_search
+    times = []
+
+    def timed(*a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        status = c_entry(*a)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return status
+
+    for _ in range(reps + 1):  # the first is a warm-up
+        beam_search_cuda._beam_search_cuda(*args, entry=timed, tiled=tiled)
+    return float(np.median(times[1:]))
+
+
+def beam_identical(a, b):
+    """Whether two BeamResults agree bit for bit in every field."""
+    import torch
+
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
 
 
 def beam_ab(label, args, tables, parent):
     """The parent checkout's beam kernel against this one on the same inputs,
-    timed in turns (parent, this, this, parent); token positions that differ."""
+    timed in turns (parent, this, this, parent); every field of the result
+    must be bit-identical."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.ops import beam_search_cuda
@@ -811,32 +880,44 @@ def beam_ab(label, args, tables, parent):
     def run(entry):
         return lambda: beam_search_cuda._beam_search_cuda(*args, tables, entry=entry)
 
-    diff = int((run(parent)().tokens != run(None)().tokens).sum())
+    theirs, ours = run(parent)(), run(None)()
     torch.cuda.synchronize()
+    diff = int((theirs.tokens != ours.tokens).sum())
+    same = beam_identical(theirs, ours)
     turns = [time_ms(run(entry), reps=5, warmup=1) for entry in (parent, None, None, parent)]
     log(f"beam A/B {label}: parent {turns[0]:.3f} / {turns[3]:.3f} ms, this "
         f"{turns[1]:.3f} / {turns[2]:.3f} ms (parent, this, this, parent); "
-        f"{diff} token positions differ")
+        f"{diff} token positions differ, bit-identical {same}")
+    assert same, f"beam A/B {label}: not bit-identical to the parent's kernel"
     return turns
 
 
-def tie_rnnt(model, dev):
-    """Decoder and joiner at vocab BEAM_TIE_V from the model's weights (the
-    first rows of the embedding and output layer), with the BEAM_TIES output
-    rows zeroed and biased: exact logit ties across vocab slices."""
+def vocab_rnnt(model, dev, v):
+    """Decoder and joiner at vocab v from the model's weights (the first
+    rows of the embedding and output layer)."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.models.rnnt import Decoder, Joiner
 
-    cfg = dataclasses.replace(model.rnnt_cfg, vocab_size=BEAM_TIE_V)
+    cfg = dataclasses.replace(model.rnnt_cfg, vocab_size=v)
     dec, joi = Decoder(cfg, device=dev).eval(), Joiner(cfg).to(dev).eval()
     with torch.no_grad():
-        dec.embedding.copy_(model.decoder.embedding[:BEAM_TIE_V])
+        dec.embedding.copy_(model.decoder.embedding[:v])
         dec.conv_weight.copy_(model.decoder.conv_weight)
         for name in ("encoder_proj", "decoder_proj"):
             getattr(joi, name).load_state_dict(getattr(model.joiner, name).state_dict())
-        joi.output.weight.copy_(model.joiner.output.weight[:BEAM_TIE_V])
-        joi.output.bias.copy_(model.joiner.output.bias[:BEAM_TIE_V])
+        joi.output.weight.copy_(model.joiner.output.weight[:v])
+        joi.output.bias.copy_(model.joiner.output.bias[:v])
+    return dec, joi, cfg
+
+
+def tie_rnnt(model, dev):
+    """vocab_rnnt at BEAM_TIE_V with the BEAM_TIES output rows zeroed and
+    biased: exact logit ties across vocab slices."""
+    import torch
+
+    dec, joi, cfg = vocab_rnnt(model, dev, BEAM_TIE_V)
+    with torch.no_grad():
         for tok, bias in BEAM_TIES:
             joi.output.weight[tok] = 0.0
             joi.output.bias[tok] = bias
@@ -957,11 +1038,14 @@ def beam_near_ties(label, got, ref, host):
     torch.cuda.synchronize()
     kernel_diff = got.tokens != ref.tokens
     n_diff = int(kernel_diff.sum())
+    t0 = time.perf_counter()
     order_diff = int((ref.tokens.cpu() != host().tokens).sum()) if n_diff else None
+    host_s = f" ({time.perf_counter() - t0:.1f} s on the host)" if n_diff else ""
     same = ~kernel_diff.any(dim=1)
     log(f"beam {label}: kernel vs twin {n_diff} tokens differ (rows "
         f"{kernel_diff.any(dim=1).nonzero().flatten().tolist()}), twin on the host vs on the "
-        f"card {'not run' if order_diff is None else order_diff}; n {got.num_tokens.tolist()}")
+        f"card {'not run' if order_diff is None else order_diff}{host_s}; n "
+        f"{got.num_tokens.tolist()}")
     assert n_diff <= (order_diff or 0), f"beam {label}: token parity"
     assert bool(same.any()), f"beam {label}: no row equal to the twin's"
     rows = [beam_search.BeamResult(*(getattr(r, f.name)[same] for f in dataclasses.fields(r)))
@@ -969,19 +1053,31 @@ def beam_near_ties(label, got, ref, host):
     return _beam_compare(f"{label} rows {same.nonzero().flatten().tolist()}", *rows)
 
 
-def check_beam_caps(dev, model, model68, tables):
-    """The beam kernel past beam 8, at its caps 16 and 32: against its twin
-    on the card at Zipformer-30M's joiner input (E 256) and 68M's (E 512),
-    with and without the hotword table, B 4 T 823 lens BEAM_CAPS_LENS (823,
-    402, 1 and 0 frames) under beam_near_ties' rule, and at B 1 (a streaming
-    session's batch) equal to row 0 of the B 4 decode; then each cap's time
-    at B 8 T 823 (E 256, BEAM_LENS_823) against the twin's and its bound.
-    Returns the kernels line's entries, one a cap."""
+def check_beam_caps(dev, model, model68, tables, parent=None):
+    """The beam kernel past beam 8: its cap 16 and the row-tiled kernel at
+    32 and BEAM_WIDE, against the twin on the card at Zipformer-30M's
+    joiner input (E 256) and 68M's (E 512), with and without the hotword
+    table, B 4 T 823 lens BEAM_CAPS_LENS (823, 402, 1 and 0 frames) under
+    beam_near_ties' rule, and at B 1 (a streaming session's batch) equal to
+    row 0 of the B 4 decode. At E 256 the BEAM_WIDE beams run with the
+    joiner's output x AUTO_SHARPEN (fewer near-ties), token-identical, and
+    beam 33 without hotwords also on the random joiner under the near-tie
+    rule (random weights flip 1-2 tokens there, within the host twin's
+    spread; the host twin's runs at beam 128 took over a minute each).
+    The tiled kernel at vocab BEAM_V48, where a beam of 64 outnumbers the
+    first frames' live candidates, token-identical to the twin; the tiled
+    kernel at beams 8 and 16 bit-identical to the caps; then each beam's
+    time at B 8 T 823 (E 256, BEAM_LENS_823), around the wrapper and of the
+    launch alone (launch_ms), against the twin's and its bound. With a
+    parent checkout, cap 16 and the tiled kernel at beams 17, 24 (with
+    hotwords) and 32 bit-identical to its kernel in turns (a parent's cap
+    32 at beams 17-32). Returns the kernels line's entries, one a beam."""
     import copy
 
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch.ops import beam_search, beam_search_cuda
+    from sherpa_vietnamese_asr_tpu_torch.tools.profile_slice import synthetic_hotword_tables
 
     gen = torch.Generator(device="cpu").manual_seed(6)
     lens = torch.tensor(BEAM_CAPS_LENS, dtype=torch.int32, device=dev)
@@ -991,49 +1087,88 @@ def check_beam_caps(dev, model, model68, tables):
         cfg = m.rnnt_cfg
         e = cfg.encoder_out_dim
         host_rnnt = (copy.deepcopy(m.decoder).cpu(), copy.deepcopy(m.joiner).cpu())
+        sharp_joiner = copy.deepcopy(m.joiner)
+        with torch.no_grad():
+            sharp_joiner.output.weight.mul_(AUTO_SHARPEN)
         enc = torch.randn((len(BEAM_CAPS_LENS), 823, e), generator=gen).to(dev)
-        for beam in (16, 32):
+        for beam in (16, 32, *BEAM_WIDE):
             cap = beam_search_cuda.beam_cap(beam)
             smem = beam_search_cuda._kernel_smem_bytes(823, e, cfg.decoder_dim,
                                                        cfg.joiner_dim, cfg.vocab_size, cap)
             log(f"beam {beam} E {e}: cap {cap}, shared memory a block at T 823 {smem} B "
                 f"(limit {beam_search_cuda._smem_limit(cap)} B)")
-            for hw in (None, tables):
-                label = f"beam {beam} E={e}{' hotwords' if hw is not None else ''} T=823"
-                args = (enc, lens, m.decoder, m.joiner, cfg, beam)
+            # At E 256 the beams past 32 on the sharpened joiner: token-identical;
+            # the first also on the random joiner under the near-tie rule.
+            cases = [(hw, e == 256 and beam in BEAM_WIDE) for hw in (None, tables)]
+            if e == 256 and beam == BEAM_WIDE[0]:
+                cases.append((None, False))
+            for hw, sharp in cases:
+                joiner = sharp_joiner if sharp else m.joiner
+                label = (f"beam {beam} E={e}{' hotwords' if hw is not None else ''} T=823"
+                         f"{f' joiner x {AUTO_SHARPEN:g}' if sharp else ''}")
+                args = (enc, lens, m.decoder, joiner, cfg, beam)
                 got = beam_search_cuda.beam_search_batch_cuda(*args, hw_tables=hw)
                 ref = beam_search.beam_search_batch(*args, hw_tables=hw)
-                host_hw = None if hw is None else host_tables
-                err = beam_near_ties(label, got, ref, lambda: beam_search.beam_search_batch(
-                    enc.cpu(), lens.cpu(), *host_rnnt, cfg, beam, hw_tables=host_hw))
-                if e == 256 and hw is None:
+                if sharp:
+                    err = _beam_compare(label, got, ref)
+                else:
+                    host_hw = None if hw is None else host_tables
+                    err = beam_near_ties(label, got, ref, lambda: beam_search.beam_search_batch(
+                        enc.cpu(), lens.cpu(), *host_rnnt, cfg, beam, hw_tables=host_hw))
+                if e == 256 and hw is None and beam not in errs:
                     errs[beam] = err
                     one = beam_search_cuda.beam_search_batch_cuda(enc[:1], lens[:1], m.decoder,
-                                                                  m.joiner, cfg, beam)
+                                                                  joiner, cfg, beam)
                     torch.cuda.synchronize()
                     assert torch.equal(one.tokens[0], got.tokens[0]) and \
                         torch.equal(one.tok_logp[0], got.tok_logp[0]), f"{label}: B 1 moved"
                     log(f"beam {label}: B 1 equal to row 0 of B {len(BEAM_CAPS_LENS)} "
                         f"({int(one.num_tokens[0])} tokens)")
+                del got, ref
+        if e != 256:
+            continue
+        for beam in CAP_BEAMS:  # the tiled kernel at the caps' beams
+            args = (enc, lens, m.decoder, m.joiner, cfg, beam, None)
+            same = beam_identical(beam_search_cuda._beam_search_cuda(*args),
+                                  beam_search_cuda._beam_search_cuda(*args, tiled=True))
+            log(f"beam {beam} E={e} T=823: the tiled kernel bit-identical to cap "
+                f"{beam_search_cuda.beam_cap(beam)}: {same}")
+            assert same, f"beam {beam}: the tiled kernel differs from the cap"
+        dec, joi, vcfg = vocab_rnnt(m, dev, BEAM_V48)
+        lens64 = torch.tensor(BEAM_LENS_64[:4], dtype=torch.int32, device=dev)
+        for beam in BEAM_WIDE:
+            for vhw in (None, synthetic_hotword_tables(BEAM_V48, dev)):
+                args = (enc[:, :64].contiguous(), lens64, dec, joi, vcfg, beam)
+                _beam_compare(f"V={BEAM_V48} beam {beam}{' hotwords' if vhw is not None else ''} "
+                              f"T=64", beam_search_cuda.beam_search_batch_cuda(*args, hw_tables=vhw),
+                              beam_search.beam_search_batch(*args, hw_tables=vhw))
     cfg = model.rnnt_cfg
     enc = torch.randn((SLICE_BATCH, 823, cfg.encoder_out_dim), generator=gen).to(dev)
     lens = torch.tensor(BEAM_LENS_823, dtype=torch.int32, device=dev)
+    longest = int(lens.clamp(0, 823).max())
     out = []
-    for beam in (16, 32):
+    for beam in (16, 32, *BEAM_WIDE):
         args = (enc, lens, model.decoder, model.joiner, cfg, beam)
-        ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args), reps=5, warmup=1)
-        plain_ms = time_ms(lambda: beam_search.beam_search_batch(*args), reps=1, warmup=1)
+        ms = time_ms(lambda: beam_search_cuda.beam_search_batch_cuda(*args), reps=3, warmup=1)
+        dev_ms = launch_ms((*args, None))
+        plain_ms = time_ms(lambda: beam_search.beam_search_batch(*args), reps=1, warmup=0)
         bnd = beam_bound(*args)
-        longest = int(lens.clamp(0, 823).max())
         log(f"beam {beam}: B {SLICE_BATCH} T 823 V {cfg.vocab_size} cap "
-            f"{beam_search_cuda.beam_cap(beam)}: kernel {ms:.3f} ms ({1e3 * ms / longest:.2f} us "
-            f"a frame over the longest row's {longest}), plain {plain_ms:.3f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) ({card()})")
+            f"{beam_search_cuda.beam_cap(beam)}: kernel {ms:.3f} ms, launch alone (events) "
+            f"{dev_ms:.3f} ms ({1e3 * ms / longest:.2f} us a frame over the longest row's "
+            f"{longest}), plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}) ({card()})")
+        if parent is not None and beam in (16, 32):
+            beam_ab(f"B 8 T 823 V 2000 beam {beam}", args, None, parent["beam"])
         out.append({"name": f"beam_search_beam{beam}",
                     "source": "sherpa_vietnamese_asr_tpu_torch/csrc/beam_search.cu",
                     "replaces": "sherpa_vietnamese_asr_tpu/ops/beam_search_pallas.py:101",
                     "max_abs_err": errs[beam], "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, **bnd})
+    if parent is not None:  # partial tiles: the parent's cap 32 at 17 and 24 rows
+        for beam, hw in ((17, None), (24, tables)):
+            beam_ab(f"B 8 T 823 V 2000 beam {beam}{' hotwords' if hw is not None else ''}",
+                    (enc, lens, model.decoder, model.joiner, cfg, beam), hw, parent["beam"])
     return out
 
 
@@ -1785,23 +1920,27 @@ def bf16_68m(model68, model68_16, audio, path):
 
 
 def cli_beams(model, model_dir, path):
-    """`cli transcribe --beam 16` and `--beam 32` in-process on the card: the
-    beam kernel's caps 16 and 32 from the user's entry point. Each writes
-    words, its words equal an in-memory pipeline run at that beam, and its
-    beam launches are counted."""
+    """`cli transcribe --beam N` in-process on the card at 16 (the beam
+    kernel's cap past 8) and at 32 and BEAM_WIDE (the row-tiled kernel), from
+    the user's entry point. Each writes words, its words equal an in-memory
+    pipeline run at that beam, and its launches of the beam kernel (of the
+    tiled kernel past the caps) are counted."""
     import torch
 
     from sherpa_vietnamese_asr_tpu_torch import TranscriberPipeline
     from sherpa_vietnamese_asr_tpu_torch.ops import beam_search_cuda
 
     counts = {}
-    for beam in (16, 32):
-        beam_search_cuda.launches = 0
+    for beam in (16, 32, *BEAM_WIDE):
+        beam_search_cuda.launches = beam_search_cuda.tiled_launches = 0
         t0 = time.perf_counter()
         rc, out, err = run_cli(["transcribe", path, "--model", model_dir, "--beam", str(beam)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[f"beam_search_beam{beam}"] = beam_search_cuda.launches
+        counts[f"beam_search_beam{beam}"] = (
+            beam_search_cuda.tiled_launches
+            if beam_search_cuda.beam_cap(beam) == beam_search_cuda.TILED
+            else beam_search_cuda.launches)
         assert rc == 0, f"cli --beam {beam} exit {rc}: {err[-2000:]}"
         with open(path + ".asr.json", encoding="utf-8") as f:
             data = json.load(f)
@@ -4366,6 +4505,7 @@ def zero_all_counts():
 
     fbank.launches = attention.launches = attention.bf16band_launches = 0
     beam_search_cuda.launches = beam_search_cuda.hotword_launches = encoder_layer.launches = 0
+    beam_search_cuda.tiled_launches = 0
 
 
 def phase_bench():
@@ -4586,7 +4726,6 @@ def main(argv=None):
                check_encoder_layer(dev, model68_16, None, LAYER_SHAPES_68M,
                                    "encoder_layer_bf16_68m", plain_layer=True)]
     check_beam_e512(dev, model68)
-    kernels += check_beam_caps(dev, model, model68, tables)
     done("kernel parity")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(dev, model, tmp)
@@ -4619,6 +4758,10 @@ def main(argv=None):
     done("bench")
     phase_multi_device(dev, model)
     done("multi-device")
+    # Last: millions of plain-twin launches, after which torch.profiler's
+    # windows lost events (phases 3 and 6 of two runs with it in phase 3).
+    kernels += check_beam_caps(dev, model, model68, tables, parent)
+    done("beam past 8")
     paths = (launches, launches_bf16, launches_probe, launches_default, launches_diar,
              launches_punct, launches_stream, launches_senko, launches_overlap)
     for k in kernels:  # each kernel's count from the first path that runs it

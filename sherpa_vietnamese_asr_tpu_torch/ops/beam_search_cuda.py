@@ -5,6 +5,9 @@
 # runs the plain twin ops/beam_search.beam_search_batch; for CUDA tensors it
 # launches the kernel, which runs every frame and the backward walk over its
 # records in one launch (a cluster of CLUSTER blocks per chunk), or raises.
+# Beams up to 16 run the kernel's beam caps (svt_beam_search); a beam past
+# them runs the row-tiled kernel (svt_beam_search_tiled), whose per-beam
+# state lives in a workspace this wrapper sizes from the beam.
 
 from __future__ import annotations
 
@@ -20,47 +23,46 @@ from sherpa_vietnamese_asr_tpu_torch.ops.beam_search import (
 )
 
 # Kernel launches of beam_search_batch_cuda() on CUDA tensors, without and
-# with hotword tables.
+# with hotword tables, at any beam; and of the row-tiled kernel alone.
 launches = 0
 hotword_launches = 0
+tiled_launches = 0
 
-CAPS = (8, 16, 32)  # the kernel's beam caps, one instantiation each
-MAX_BEAM = CAPS[-1]
+CAPS = (8, 16)  # the kernel's beam caps, one instantiation each
+MAX_CAP = CAPS[-1]
+TILED = "tiled"  # beams past MAX_CAP: the row-tiled kernel
+TILE = 32  # rows a tile of the row-tiled kernel
 CLUSTER = 8  # blocks per chunk, each owning a 1/8 slice of the vocab
 _BLOCK_SMEM = 232448  # 227 KB of shared memory a block on an H100
+_TILED_STATIC = 6 * 1024  # the row-tiled kernel's static shared memory (5,664 B) and margin
 
 
-def beam_cap(beam_size) -> int:
-    """The smallest beam cap of the kernel that holds beam_size."""
-    if not 1 <= beam_size <= MAX_BEAM:
-        raise ValueError(f"beam kernel takes beam_size 1..{MAX_BEAM}, got {beam_size}")
-    return next(c for c in CAPS if c >= beam_size)
+def beam_cap(beam_size):
+    """The kernel's instantiation for beam_size: the smallest of CAPS that
+    holds it, or TILED for a beam past the largest cap."""
+    if beam_size < 1:
+        raise ValueError(f"beam kernel takes beam_size >= 1, got {beam_size}")
+    return next((c for c in CAPS if c >= beam_size), TILED)
 
 
 def _smem_limit(cap) -> int:
     """Dynamic shared memory a block may take at `cap`: 227 KB less 512
-    bytes a beam of the cap for the kernel's static shared memory (2.1, 4.4
-    and 9.4 KB)."""
-    return _BLOCK_SMEM - 512 * cap
-
-
-def _history_global(cap) -> bool:
-    """Whether the leader's token histories leave shared memory for the
-    `hist` workspace (caps past 16)."""
-    return cap > 16
+    bytes a beam of the cap for the kernel's static shared memory (2.1 and
+    4.4 KB), or less the row-tiled kernel's fixed arrays."""
+    return _BLOCK_SMEM - (_TILED_STATIC if cap == TILED else 512 * cap)
 
 
 def _kernel_smem_bytes(t, e, d, j, v, cap=8) -> int:
     """Dynamic shared memory of one block at beam cap `cap`: its [cap,
     ceil(V/8)] logit slice, the [J, cap] hidden layer, the [D, cap] decoder
     rows, partial sums, the encoder frame, and the [2, cap, T] uint16 token
-    histories that only the cluster's leader uses. Past cap 16 the histories
-    are a global workspace and the logit slice shares the decoder rows'
-    space."""
+    histories that only the cluster's leader uses. The row-tiled kernel
+    holds one tile of TILE rows, whatever the beam and T: its logit slice
+    shares the decoder rows' space and its histories are in its workspace."""
     w = -(-v // CLUSTER)
+    if cap == TILED:
+        return (TILE * (j + max(d, w)) + 8 * 64 * (TILE + 1) + e) * 4
     scratch = 8 * 64 * (cap + 1)  # the kernel's partial-sum floats
-    if _history_global(cap):
-        return (cap * (j + max(d, w)) + scratch + e) * 4
     return (cap * (w + j + d) + scratch + e) * 4 + 2 * cap * t * 2
 
 
@@ -86,18 +88,25 @@ def _hotword_args(hw, dev, v):
 
 
 def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
-                      entry=None):
-    """Launch svt_beam_search, or `entry`, another build of the same C entry
-    point (an A/B against an earlier kernel), which counts no launch."""
-    global launches, hotword_launches
+                      entry=None, tiled=False):
+    """Launch svt_beam_search, or `entry` in its place, another build of the
+    same C entry point or a wrapper of it (an A/B against an earlier kernel,
+    a launch timed alone), which counts no launch. A beam past the caps, or
+    any beam with `tiled`, launches svt_beam_search_tiled."""
+    global launches, hotword_launches, tiled_launches
     dev = enc_out.device
     b, t, e = enc_out.shape
     v, d, j = cfg.vocab_size, cfg.decoder_dim, cfg.joiner_dim
     conv_w = decoder.conv_weight.detach()
     ipg, k = conv_w.shape[1], conv_w.shape[2]
     cap = beam_cap(beam_size)
+    if tiled:
+        cap = TILED
     if not 2 <= v <= 65536 or k > 4 or k != cfg.context_size:
         raise ValueError("beam kernel: vocab must be 2..65536 and context_size <= 4")
+    if beam_size * v >= 2 ** 31:
+        raise ValueError(f"beam kernel: beam_size x vocab must stay below 2^31, got "
+                         f"{beam_size} x {v}")
     if enc_out.dtype != torch.float32 or e != cfg.encoder_out_dim:
         raise ValueError(f"enc_out must be float32 [B, T, {cfg.encoder_out_dim}]")
     if enc_lens.shape != (b,):
@@ -121,9 +130,9 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
             torch.empty((b, t, beam_size), dtype=i32, device=dev),
             torch.empty((b, t, beam_size), dtype=f32, device=dev),
             torch.empty((b, t, beam_size, 4), dtype=f32, device=dev)]
-    # The leader's token histories past cap 16, rows padded to 8 tokens.
-    hist = (torch.empty((b, 2, cap, -(-t // 8) * 8), dtype=torch.int16, device=dev)
-            if _history_global(cap) else None)
+    if cap == TILED and b and t:  # the row-tiled kernel's per-chunk workspaces
+        ws_bytes = b * cuda_lib.library().svt_beam_tiled_workspace_bytes(t, j, v, beam_size)
+        work = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
     res = BeamResult(
         tokens=torch.empty((b, t), dtype=i32, device=dev),
         frames=torch.empty((b, t), dtype=i32, device=dev),
@@ -141,18 +150,25 @@ def _beam_search_cuda(enc_out, enc_lens, decoder, joiner, cfg, beam_size, hw,
     _, max_entropy, tsallis_max = metric_constants(v)
     outs = [res.tokens, res.frames, res.tok_logp, res.entropy,
             res.num_tokens, res.total_logp]
-    fn = entry or cuda_lib.library().svt_beam_search
+    if cap == TILED:
+        fn, name = entry or cuda_lib.library().svt_beam_search_tiled, "svt_beam_search_tiled"
+        work_args = [work.data_ptr(), ws_bytes]
+    else:
+        fn, name = entry or cuda_lib.library().svt_beam_search, "svt_beam_search"
+        work_args = []
     status = fn(
         *[x.data_ptr() for x in args], *hw_ptrs, *[x.data_ptr() for x in recs],
-        None if hist is None else hist.data_ptr(), *[x.data_ptr() for x in outs],
+        *work_args, *[x.data_ptr() for x in outs],
         b, t, e, d, ipg, k, j, v, beam_size, cfg.blank_id, cfg.unk_id, s_hw,
         float(tsallis_max), float(max_entropy), cuda_lib.stream(dev))
-    cuda_lib.check(status, "svt_beam_search")
+    cuda_lib.check(status, name)
     if entry is None:
         if hw is None:
             launches += 1
         else:
             hotword_launches += 1
+        if cap == TILED:
+            tiled_launches += 1
     return res
 
 
@@ -164,9 +180,10 @@ def beam_search_batch_cuda(enc_out, enc_lens, decoder: Decoder,
     ops/beam_search.beam_search_batch.
 
     enc_out: [N, T, E] float32; enc_lens: [N]. CPU tensors run the plain
-    twin; CUDA tensors launch the kernel (beam_size 1..MAX_BEAM, through
-    the smallest of CAPS that holds it; hotword tables on the same device,
-    any S with S * V < 2^31), or raise.
+    twin; CUDA tensors launch the kernel (beam_size 1..MAX_CAP through the
+    smallest of CAPS that holds it, a larger beam through the row-tiled
+    kernel; hotword tables on the same device, any S with S * V < 2^31),
+    or raise.
     """
     if enc_out.device.type == "cpu":
         return beam_search_batch(enc_out, enc_lens, decoder, joiner, cfg,

@@ -42,11 +42,14 @@ SIGNATURES = {
     "svt_attention_weights_bf16band": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
     # enc, lens, emb, conv_w, we, be, wdp, bdp, wo, bo,
     # hw_next, hw_delta, hw_node (null when S = 0),
-    # rec_par, rec_tok, rec_lp, rec_met, hist (null at beam <= 16),
+    # rec_par, rec_tok, rec_lp, rec_met,
     # tokens, frames, tok_logp, entropy, num_tokens, total_logp
     # | B, T, E, D, ipg, K, J, V, beam, blank, unk, S | tsallis_max,
     # max_entropy | stream
-    "svt_beam_search": [_P] * 24 + [_I] * 12 + [_F, _F, _P],
+    "svt_beam_search": [_P] * 23 + [_I] * 12 + [_F, _F, _P],
+    # the same, with the row-tiled kernel's workspace ws and its size in
+    # bytes after rec_met
+    "svt_beam_search_tiled": [_P] * 18 + [_L] + [_P] * 6 + [_I] * 12 + [_F, _F, _P],
     # x, lens, poslin, weights and K-major weights (host arrays of 42
     # pointers), plan (host array of 20 x 4 ints), out,
     # ws_proj, ws_w, ws_a, ws_b, ws_c, ws_x, ws_x16
@@ -138,6 +141,9 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            # T, J, V, beam -> bytes of one chunk's row-tiled beam workspace
+            lib.svt_beam_tiled_workspace_bytes.argtypes = [_I] * 4
+            lib.svt_beam_tiled_workspace_bytes.restype = _L
             lib.svt_error_string.argtypes = [_I]
             lib.svt_error_string.restype = ctypes.c_char_p
             _lib = lib

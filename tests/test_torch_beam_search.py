@@ -71,7 +71,7 @@ def _assert_same(got, ref, atol=1e-4):
                                atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("beam", [1, 4, 8, 12, 16, 32])
+@pytest.mark.parametrize("beam", [1, 4, 8, 12, 16, 32, 33, 64])
 def test_parity_with_jax_scan_and_pallas(beam):
     import jax.numpy as jnp
 
@@ -161,8 +161,9 @@ def test_margin_zero_on_exact_tie():
 
 
 def test_hotwords_match_jax_scan():
-    """The plain twin carries the hotword automaton (the CUDA kernel's
-    hotword branch is held against this twin on the card by chip_smoke.py)."""
+    """The plain twin carries the hotword automaton, at beam 8 and at a beam
+    past the live candidates of the first frames (the CUDA kernel's hotword
+    branch is held against this twin on the card by chip_smoke.py)."""
     import jax.numpy as jnp
 
     from sherpa_vietnamese_asr_tpu.ops.beam_search import beam_search_batch as jbs
@@ -175,10 +176,11 @@ def test_hotwords_match_jax_scan():
     enc = np.random.default_rng(8).standard_normal((3, 18, 256)).astype(
         np.float32)
     lens = [18, 11, 1]
-    got = _run_port(enc, lens, cfg, dec, joi, 8, tables)
-    ref = jbs(jnp.asarray(enc), jnp.asarray(lens, jnp.int32), jdec, jjoi, jcfg,
-              beam_size=8, hw_tables=tables, with_hotwords=True)
-    _assert_same(got, ref)
+    for beam in (8, 64):
+        got = _run_port(enc, lens, cfg, dec, joi, beam, tables)
+        ref = jbs(jnp.asarray(enc), jnp.asarray(lens, jnp.int32), jdec, jjoi, jcfg,
+                  beam_size=beam, hw_tables=tables, with_hotwords=True)
+        _assert_same(got, ref)
 
 
 def test_matches_frozen_beam_fixture():
@@ -208,6 +210,29 @@ def test_matches_frozen_beam_fixture():
             assert abs(float(got.total_logp[i]) - exp["total_logp"]) < 1e-3, label
 
 
+@pytest.mark.parametrize("case", ["random", "halves", "dead_rows", "all_equal"])
+@pytest.mark.parametrize("beam,v", [(1, 7), (4, 2), (8, 7), (64, 7), (33, 48), (64, 48),
+                                    (128, 2000)])
+def test_tiled_selection_equals_the_full_stable_sort(beam, v, case):
+    """The row-tiled kernel's selection over 8 vocab slices (the numpy
+    mirror _tiled_top_beam, below) is the first `beam` of the twin's one
+    stable descending sort over beam x vocab: ties within and across rows
+    and slices, the -1e30 rows of the first frames, slices narrower than a
+    beam or empty, and a beam that outnumbers beam x vocab's live entries."""
+    acc = np.random.default_rng(beam * v).standard_normal((3, beam, v)).astype(np.float32)
+    if case == "halves":  # many exact ties, within rows and across them
+        acc = np.round(acc * 2) / 2
+    elif case == "dead_rows":
+        acc[:, 1:] = NEG_INF
+    elif case == "all_equal":
+        acc[:] = 0.0
+    want = torch.sort(torch.from_numpy(acc).reshape(3, -1), dim=-1, descending=True,
+                      stable=True).indices[:, :beam].numpy()
+    for n in range(3):
+        np.testing.assert_array_equal(
+            _tiled_top_beam(acc[n], np.zeros(beam, np.float32), 8, seed=n), want[n])
+
+
 def test_cpu_tensor_runs_plain_twin_without_launch(monkeypatch):
     def no_library():
         raise AssertionError("kernel library loaded for a CPU tensor")
@@ -234,10 +259,13 @@ def test_cpu_tensor_runs_plain_twin_without_launch(monkeypatch):
 # into the row's lse, takes its slice's entropy, Tsallis and top-2 terms and
 # its local exact top-beam (first per warp of 32 threads, then over the
 # warps' lists); the leader merges the C local lists and the metric
-# partials. A beam runs in the kernel's smallest beam cap that holds it (8,
-# 16 or 32), which sets the threads a row of the warp scan. The model
-# follows those steps in float32 and is held against the plain twin's
-# stable sort and metrics.
+# partials. A beam runs in the kernel's smallest beam cap that holds it (8
+# or 16), which sets the threads a row of the warp scan; a beam past 16
+# runs the row-tiled kernel, whose block takes its slice's top-beam by a
+# radix select of score keys (then of flat indices among the tied keys) and
+# whose leader ranks the union of the lists by counting. The model follows
+# those steps in float32 and is held against the plain twin's stable sort
+# and metrics.
 
 _INT_MAX = 2 ** 31 - 1
 _WARPS = 16  # 512 threads a block
@@ -282,7 +310,7 @@ def _split_top_beam(lp, logp, c):
         flat = bb * v + lo + col
         score = score_all[bb, lo + col]
         # row_threads a row: at cap 8 warp w scans row w // 2, columns (w %
-        # 2) * 32 + lane + 64k; at cap 32 a warp scans two rows, 16 lanes each.
+        # 2) * 32 + lane + 64k; at cap 16 a warp scans one row.
         warp = (bb * row_threads + col % row_threads) // 32
         ws, wi = zip(*[_top_passes(score[warp == k], flat[warp == k], beam)
                        for k in range(_WARPS)])
@@ -290,6 +318,76 @@ def _split_top_beam(lp, logp, c):
         lists_s.append(s)
         lists_i.append(i)
     return _top_passes(np.concatenate(lists_s), np.concatenate(lists_i), beam)[1]
+
+
+def _score_keys(s):
+    """The kernel's score_key: uint32 keys in the order of the float32
+    scores, -0 taken as +0."""
+    u = (s.astype(np.float32) + np.float32(0)).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _kth_largest(keys, k):
+    """The k-th largest of uint32 keys as the kernel's kth_largest finds it,
+    four passes of an 8-bit digit from the top, each a histogram of the
+    keys that match the digits found so far: (key, how many exceed it, how
+    many equal it)."""
+    prefix, mask, kk = 0, 0, k
+    for shift in (24, 16, 8, 0):
+        live = keys[(keys & np.uint32(mask)) == np.uint32(prefix)]
+        hist = np.bincount((live >> np.uint32(shift)) & np.uint32(255), minlength=256)
+        top = np.cumsum(hist[::-1])[::-1] - hist  # keys in the bins above each digit
+        d = int(np.nonzero((top < kk) & (kk <= top + hist))[0][0])
+        kk -= int(top[d])
+        prefix |= d << shift
+        mask |= 255 << shift
+        equal = int(hist[d])
+    return prefix, k - kk, equal
+
+
+def _tiled_top_beam(lp, logp, c, seed=0):
+    """Flat indices of the top-beam of lp [beam, V] + logp [beam] as the
+    row-tiled kernel takes it: each slice's exact top-beam by kth_largest
+    over the score keys and, when more keys tie at the threshold than are
+    needed, over ~flat index among the tied ones, appended in an arbitrary
+    order (shuffled here) and padded to beam with (-inf, INT_MAX); then the
+    leader ranks every entry of the C lists by how many entries beat it on
+    (score key, ~flat index), and the entry of rank p < beam is new beam p."""
+    beam, v = lp.shape
+    rng = np.random.default_rng(seed)
+    score_all = (lp + logp[:, None]).astype(np.float32)
+    ent_s, ent_i = [], []
+    for lo, hi in _slices(v, c):
+        width = hi - lo
+        bb, col = np.divmod(np.arange(beam * width), max(width, 1))
+        flat = (bb * v + lo + col).astype(np.int64)
+        sc = score_all[bb, lo + col]
+        take = np.ones(sc.size, bool)
+        if sc.size > beam:
+            keys = _score_keys(sc)
+            t_hi, above, equal = _kth_largest(keys, beam)
+            need = beam - above
+            take = keys > t_hi
+            ties = keys == np.uint32(t_hi)
+            if need < equal:
+                lo_keys = (~flat.astype(np.uint32)).astype(np.uint32)
+                t_lo = _kth_largest(lo_keys[ties], need)[0]
+                take |= ties & (lo_keys >= np.uint32(t_lo))
+            else:
+                take |= ties
+        order = rng.permutation(int(take.sum()))
+        pad = beam - len(order)
+        ent_s.append(np.concatenate([sc[take][order], np.full(pad, -np.inf, np.float32)]))
+        ent_i.append(np.concatenate([flat[take][order], np.full(pad, _INT_MAX)]))
+    s, i = np.concatenate(ent_s), np.concatenate(ent_i)
+    key = (_score_keys(s).astype(np.uint64) << np.uint64(32)) | \
+        (~i.astype(np.uint32)).astype(np.uint64)
+    rank = (key[None, :] > key[:, None]).sum(1)
+    out = np.full(beam, -1, np.int64)
+    real = i != _INT_MAX
+    assert (rank[real] < beam).sum() == beam
+    out[rank[real & (rank < beam)]] = i[real & (rank < beam)]
+    return out
 
 
 def _split_metrics(logits, c):
@@ -334,10 +432,12 @@ def _frame_case(case, v, beam=8):
     logp = np.sort(rng.uniform(-6, 0, beam)).astype(np.float32)[::-1].copy()
     if case == "ties_at_slice_boundaries":
         # The two columns beside every boundary of an 8-way split tie, above
-        # the rest; beams 0 and 1 tie too, so ties cross rows as well.
+        # the rest (past every row's maximum at the wide beams); beams 0 and
+        # 1 tie too, so ties cross rows as well.
         w = -(-v // 8)
+        top = max(4.0, float(logits.max()) + 1.0)
         for b in range(w, v, w):
-            logits[:, b - 1] = logits[:, b] = 4.0 + b / v
+            logits[:, b - 1] = logits[:, b] = top + b / v
         logp[1] = logp[0]
     elif case == "exact_ties_whole_vocab":
         logits[:] = 0.0
@@ -352,20 +452,25 @@ def _frame_case(case, v, beam=8):
 @pytest.mark.parametrize("case", ["random", "ties_at_slice_boundaries",
                                   "exact_ties_whole_vocab", "first_frame"])
 @pytest.mark.parametrize("v", [2000, 1999, 7])
-@pytest.mark.parametrize("c,beam", [(1, 8), (8, 8), (8, 12), (8, 16), (8, 32)],
-                         ids=["1", "8", "8-beam12", "8-beam16", "8-beam32"])
+@pytest.mark.parametrize("c,beam", [(1, 8), (8, 8), (8, 12), (8, 16), (8, 32),
+                                    (8, 33), (8, 64), (8, 128)],
+                         ids=["1", "8", "8-beam12", "8-beam16", "8-beam32",
+                              "8-tiled33", "8-tiled64", "8-tiled128"])
 def test_cluster_split_schedule_matches_the_twin(c, beam, v, case):
     """The split top-beam is the twin's stable-sort order exactly (ties to the
     lowest flat index across slices and rows; -1e30 parents at frame 0), and
     the combined metrics and log-probs are the twin's within 1e-6, at beam 8
-    and past it (the caps 16 and 32, and a beam of 12 in cap 16)."""
+    and past it (cap 16, a beam of 12 in cap 16, and the row-tiled kernel's
+    selection at beams 32, 33, 64 and 128)."""
     logits, logp = _frame_case(case, v, beam)
     log_probs = torch.log_softmax(torch.from_numpy(logits), dim=-1)
     acc = (log_probs + torch.from_numpy(logp)[:, None]).reshape(-1)
     want = torch.sort(acc, descending=True, stable=True).indices[:beam]
     # Selection on the twin's own scores: the order alone is under test.
     lp_twin = log_probs.numpy()
-    np.testing.assert_array_equal(_split_top_beam(lp_twin, logp, c), want.numpy())
+    tiled = beam_search_cuda.beam_cap(beam) == beam_search_cuda.TILED
+    top = _tiled_top_beam if tiled else _split_top_beam
+    np.testing.assert_array_equal(top(lp_twin, logp, c), want.numpy())
     met, lp = _split_metrics(logits, c)
     np.testing.assert_allclose(met, _entropy_metrics(torch.from_numpy(logits)).numpy(),
                                atol=1e-6, rtol=0)
@@ -375,32 +480,39 @@ def test_cluster_split_schedule_matches_the_twin(c, beam, v, case):
 
 
 def test_beam_caps_fit_shared_memory_and_raise_past_the_largest():
-    """Each beam runs in the smallest cap that holds it; every cap's block
-    state fits shared memory at a 33 s chunk (T 823, V 2000) at Zipformer-
-    30M's joiner input (E 256) and 68M's (E 512), J = D = 512; beam 8 keeps
-    the layout it had (its byte count and limit); a beam past the largest
-    cap raises in the wrapper, naming the beam, before any launch."""
-    caps = beam_search_cuda.CAPS
-    assert caps == (8, 16, 32) and beam_search_cuda.MAX_BEAM == 32
-    for beam in range(1, 33):
-        cap = beam_search_cuda.beam_cap(beam)
-        assert beam <= cap and all(c < beam for c in caps if c < cap)
-    for cap in caps:
+    """Each beam up to 16 runs in the smallest cap that holds it and keeps
+    its layout (cap 8's byte count and limit); a beam past 16 runs the
+    row-tiled kernel, whose block holds one 32-row tile whatever the beam
+    and T; every route's block state fits shared memory at a 33 s chunk (T
+    823, V 2000) at Zipformer-30M's joiner input (E 256) and 68M's (E 512),
+    J = D = 512. A beam below 1 raises in the wrapper, naming the beam,
+    before any launch."""
+    bsc = beam_search_cuda
+    assert bsc.CAPS == (8, 16) and bsc.MAX_CAP == 16 and bsc.TILE == 32
+    for beam in range(1, 17):
+        cap = bsc.beam_cap(beam)
+        assert beam <= cap and all(c < beam for c in bsc.CAPS if c < cap)
+    for beam in (17, 32, 33, 64, 128, 1000):
+        assert bsc.beam_cap(beam) == bsc.TILED
+    for cap in (*bsc.CAPS, bsc.TILED):
         for e in (256, 512):
-            smem = beam_search_cuda._kernel_smem_bytes(823, e, 512, 512, 2000, cap)
-            assert 0 < smem <= beam_search_cuda._smem_limit(cap), (cap, e, smem)
-    # cap 8: as before this change (87,584 B at E 512 against 228,352 B)
-    assert beam_search_cuda._kernel_smem_bytes(823, 512, 512, 512, 2000) == 87584
-    assert beam_search_cuda._smem_limit(8) == 227 * 1024 - 4 * 1024
-    # past cap 16 the token histories leave shared memory: no T term
-    assert beam_search_cuda._kernel_smem_bytes(64, 512, 512, 512, 2000, 32) == \
-        beam_search_cuda._kernel_smem_bytes(4000, 512, 512, 512, 2000, 32)
-    for bad in (0, 33, 64):
+            smem = bsc._kernel_smem_bytes(823, e, 512, 512, 2000, cap)
+            assert 0 < smem <= bsc._smem_limit(cap), (cap, e, smem)
+    # cap 8: as before the caps (87,584 B at E 512 against 228,352 B)
+    assert bsc._kernel_smem_bytes(823, 512, 512, 512, 2000) == 87584
+    assert bsc._smem_limit(8) == 227 * 1024 - 4 * 1024
+    # the tiled kernel's histories are in its workspace: no T term, and the
+    # same 32-row tile whatever the beam
+    assert bsc._kernel_smem_bytes(64, 512, 512, 512, 2000, bsc.TILED) == \
+        bsc._kernel_smem_bytes(4000, 512, 512, 512, 2000, bsc.TILED) == 200704
+    assert bsc._smem_limit(bsc.TILED) >= 200704 + 5664  # ptxas: 5,664 B static
+    for bad in (0, -1):
         with pytest.raises(ValueError, match=f"got {bad}"):
-            beam_search_cuda.beam_cap(bad)
+            bsc.beam_cap(bad)
     jcfg, jdec, jjoi = _jax_rnnt(32)
     cfg, dec, joi = _port_rnnt(jcfg, jdec, jjoi)
     enc = torch.zeros((1, 4, 256), device="meta")
-    with pytest.raises(ValueError, match="got 33"):
-        beam_search_cuda._beam_search_cuda(enc, torch.ones(1, dtype=torch.int32), dec, joi,
-                                           cfg, 33, None)
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match=f"got {bad}"):
+            bsc._beam_search_cuda(enc, torch.ones(1, dtype=torch.int32), dec, joi, cfg, bad,
+                                  None)
