@@ -1,0 +1,76 @@
+"""Readings that the correctness limits are set from: the program's checked
+numbers over many seeds, and the control's (the reference put in the
+program's place, one precision step below the configuration's), all in
+one process at the cell's own size.
+
+    python3 portbench/readings.py --workload <name> --seeds 1 2 3 ... \
+        --seconds <s> [--control-seeds 1 2 3]
+
+One JSON line a seed: {"seed", "side": "program" | "control", "checks"}.
+Needs the cell's CUDA device, like run.py.
+"""
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def program_readings(workload, seed, seconds):
+    from portbench.harness import cell
+
+    res = cell.measure(workload, seed, seconds, False, "cuda", time.perf_counter())
+    return {k: c["value"] for k, c in res["checks"].items()}
+
+
+def control_readings(workload, seed, seconds):
+    """The checks of the control on the requests (or streams) a run of this
+    seed would compare."""
+    import torch
+
+    from portbench.harness import cell, check_live, check_offline, traffic, weights
+    from portbench.harness.offline import OfflineCell
+
+    _, _, cfg, mix, _ = cell.spec(workload)
+    dev = torch.device("cuda")
+    if mix["kind"] == "live":
+        _, w = weights.asr_model(cfg, seed, dev)
+        streams = traffic.live_streams(mix, seed, seconds)
+        chunks = [int(seconds / 0.64)] * len(streams)
+        enc, served = check_live.control_outputs(cfg, w, streams, chunks, dev, cfg["control"]["encoder"])
+        return check_live.judge(cfg, w, streams, enc, served, dev)
+    import tempfile
+
+    oc = OfflineCell(cfg, mix, seed, dev)
+    with tempfile.TemporaryDirectory(prefix="portbench-") as work:
+        oc.setup(work)
+        del oc.model
+        requests = [(oc.pool[i][0], check_offline.control_outputs(cfg, oc.weights, oc.vad_weights,
+                                                                   oc.pool[i][0], dev, cfg["control"]))
+                    for i in oc.sample]
+        return check_offline.judge_all(cfg, oc.weights, oc.vad_weights, requests, dev)
+
+
+def main(argv):
+    import argparse
+    import json
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seeds", type=int, nargs="*", default=[])
+    p.add_argument("--control-seeds", type=int, nargs="*", default=[])
+    p.add_argument("--seconds", type=float, default=10.0)
+    a = p.parse_args(argv)
+    for seed in a.seeds:
+        print(json.dumps({"seed": seed, "side": "program",
+                          "checks": program_readings(a.workload, seed, a.seconds)}), flush=True)
+    for seed in a.control_seeds:
+        print(json.dumps({"seed": seed, "side": "control",
+                          "checks": control_readings(a.workload, seed, a.seconds)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
