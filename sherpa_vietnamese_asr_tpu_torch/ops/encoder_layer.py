@@ -32,6 +32,7 @@ import functools
 import torch
 
 from sherpa_vietnamese_asr_tpu_torch.ops import cuda_lib
+from sherpa_vietnamese_asr_tpu_torch.utils import trace
 
 R = 128  # the sequence is zero-padded to a multiple of R, as in the JAX package
 N_FLAT = 42
@@ -488,6 +489,6 @@ def encoder_layer(layer, x, rev_pos, lens):
             return encoder_layer_plain(flat, *args)
         if x.device.type != "cuda":
             raise ValueError(f"encoder_layer: unsupported device {x.device}")
-        # The host span of one layer (tools/profile_slice reads it).
-        with torch.profiler.record_function("svt_encoder_layer"):
+        # The host range of one layer (tools/profile_slice reads it).
+        with trace.profiler_range("encoder_layer"):
             return _encoder_layer_cuda(kernel_operands(layer, flat), *args)

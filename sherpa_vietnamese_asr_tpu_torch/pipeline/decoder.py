@@ -13,6 +13,10 @@
 # With a mesh (parallel/sharding.py) each batch is split over its devices,
 # one model replica each: every device's piece is uploaded and launched
 # before any result is read, and IN_FLIGHT counts batches, not pieces.
+# Spans (utils/trace) split each batch into decode_build, decode_upload,
+# decode_enqueue, decode_readback and decode_words; the pageable upload and
+# the readback are where the host waits for the card. The counters
+# decode_rows and decode_pad_rows count each launch's real and padding rows.
 
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from sherpa_vietnamese_asr_tpu_torch.ops import fbank as fbank_ops
 from sherpa_vietnamese_asr_tpu_torch.ops.beam_search_cuda import beam_search_batch_cuda
 from sherpa_vietnamese_asr_tpu_torch.parallel import sharding
 from sherpa_vietnamese_asr_tpu_torch.pipeline.words import beam_result_to_words
+from sherpa_vietnamese_asr_tpu_torch.utils import trace
 from sherpa_vietnamese_asr_tpu_torch.utils.fbank_ref import ASR_FBANK
 
 SAMPLE_RATE = 16000
@@ -101,17 +106,19 @@ class BatchedChunkDecoder:
         """Words of each span of `group` from the devices' (BeamResult,
         enc_lens) pieces, read back here and concatenated in device order."""
         pieces = [r for r, _ in launched]
-        tokens, frames, tok_logp, entropy, num_tokens = (
-            sharding.gather([getattr(r, k) for r in pieces])
-            for k in ("tokens", "frames", "tok_logp", "entropy", "num_tokens"))
-        enc_lens_np = sharding.gather([e for _, e in launched])
+        with trace.span("decode_readback"):
+            tokens, frames, tok_logp, entropy, num_tokens = (
+                sharding.gather([getattr(r, k) for r in pieces])
+                for k in ("tokens", "frames", "tok_logp", "entropy", "num_tokens"))
+            enc_lens_np = sharding.gather([e for _, e in launched])
         out = []
-        for i, (s, e) in enumerate(group):
-            dur = (e - s) / SAMPLE_RATE
-            out.append(beam_result_to_words(
-                tokens[i], frames[i], tok_logp[i], entropy[i],
-                num_tokens[i], enc_lens_np[i], model.id2token, dur,
-                time_offset=s / SAMPLE_RATE))
+        with trace.span("decode_words"):
+            for i, (s, e) in enumerate(group):
+                dur = (e - s) / SAMPLE_RATE
+                out.append(beam_result_to_words(
+                    tokens[i], frames[i], tok_logp[i], entropy[i],
+                    num_tokens[i], enc_lens_np[i], model.id2token, dur,
+                    time_offset=s / SAMPLE_RATE))
         return out
 
     def _launch(self, concat_audio, group):
@@ -119,15 +126,21 @@ class BatchedChunkDecoder:
         each model's encoder and beam search from it. Returns
         [model][device] (BeamResult, enc_lens); nothing is read back."""
         # Keep the batch dimension static: pad the last group.
-        padded = list(group) + [(0, 1)] * (self.max_batch - len(group))
-        audio, lens = self._build_batch(concat_audio, padded)
-        if self.transfer_dtype == "int16":
-            audio = np.clip(np.rint(audio * 32768.0), -32768, 32767
-                            ).astype(np.int16)
-        audio_pieces, _ = sharding.shard_batch(audio, self.mesh, self.devices[0])
-        frame_pieces, _ = sharding.shard_batch((lens + 80) // 160, self.mesh, self.devices[0])
+        n_pad = self.max_batch - len(group)
+        trace.count("decode_rows", len(group))
+        trace.count("decode_pad_rows", n_pad)
+        with trace.span("decode_build"):
+            padded = list(group) + [(0, 1)] * n_pad
+            audio, lens = self._build_batch(concat_audio, padded)
+            if self.transfer_dtype == "int16":
+                audio = np.clip(np.rint(audio * 32768.0), -32768, 32767
+                                ).astype(np.int16)
+        with trace.span("decode_upload"):
+            audio_pieces, _ = sharding.shard_batch(audio, self.mesh, self.devices[0])
+            frame_pieces, _ = sharding.shard_batch((lens + 80) // 160, self.mesh,
+                                                   self.devices[0])
         launched = [[] for _ in self.replicas]
-        with torch.no_grad():
+        with trace.span("decode_enqueue"), torch.no_grad():
             for d, (a, f) in enumerate(zip(audio_pieces, frame_pieces)):
                 with sharding.device_scope(a.device):
                     feats = fbank_batch(a)

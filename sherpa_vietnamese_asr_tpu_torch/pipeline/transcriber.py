@@ -30,9 +30,8 @@ from __future__ import annotations
 
 import json
 import os
-import time
-
 import threading
+import time
 
 import numpy as np
 import torch
@@ -69,6 +68,7 @@ from sherpa_vietnamese_asr_tpu_torch.pipeline.suspect import (
     remove_filler_words,
     suspect_detect,
 )
+from sherpa_vietnamese_asr_tpu_torch.utils import trace
 from sherpa_vietnamese_asr_tpu_torch.utils.audio_io import is_int16_exact, load_audio
 
 SAMPLE_RATE = 16000
@@ -213,16 +213,18 @@ class TranscriberPipeline:
         return self.cancel_check is not None and self.cancel_check()
 
     def run(self):
-        t0 = time.time()
+        # One request of utils/trace: each timing key below is the duration
+        # of the span of its name (alignment: of both alignment spans).
         timing = {"transcription": 0.0, "punctuation": 0.0, "alignment": 0.0,
                   "quality": 0.0, "vad": 0.0, "preprocessing": 0.0}
-        try:
-            return self._run(t0, timing)
-        finally:
+        with trace.request(self.file_path) as req:
             try:
-                os.remove(self._phase_file)
-            except OSError:
-                pass
+                return self._run(req.start_ns, timing)
+            finally:
+                try:
+                    os.remove(self._phase_file)
+                except OSError:
+                    pass
 
     # -- resume checkpoints (opt-in via config enable_resume) --
     @property
@@ -264,12 +266,12 @@ class TranscriberPipeline:
         except OSError:
             pass
 
-    def _run(self, t0, timing):
+    def _run(self, t0_ns, timing):
         self._emit("PHASE:LoadAudio|Loading audio|0")
-        t_load = time.time()
-        audio = load_audio(self.file_path, SAMPLE_RATE,
-                           progress_callback=self._emit)
-        timing["load_audio"] = time.time() - t_load
+        with trace.span("load_audio") as sp:
+            audio = load_audio(self.file_path, SAMPLE_RATE,
+                               progress_callback=self._emit)
+        timing["load_audio"] = sp.seconds
         total_samples = len(audio)
         if self._cancelled():
             return None
@@ -278,46 +280,46 @@ class TranscriberPipeline:
         if ckpt is not None:
             self._emit("PHASE:Transcription|Resuming from checkpoint|100")
             return self._finish(
-                t0, timing, audio, total_samples, ckpt["all_words"],
+                t0_ns, timing, audio, total_samples, ckpt["all_words"],
                 ckpt["full_text"], audio[: ckpt.get("concat_len", total_samples)])
 
         # ---- VAD -> concat -> chunk plan ----
-        t_vad = time.time()
-        vad_probs = None
-        try:
-            if self.config.get("bypass_vad", False):
-                raise RuntimeError("VAD_BYPASSED_BY_USER")
-            prob_fn = self.vad_prob_fn or self._default_vad_prob_fn()
-            self._emit("PHASE:VAD|Detecting speech|0")
+        with trace.span("vad") as sp_vad:
+            vad_probs = None
+            try:
+                if self.config.get("bypass_vad", False):
+                    raise RuntimeError("VAD_BYPASSED_BY_USER")
+                prob_fn = self.vad_prob_fn or self._default_vad_prob_fn()
+                self._emit("PHASE:VAD|Detecting speech|0")
 
-            def cached_prob_fn(a):
-                nonlocal vad_probs
-                vad_probs = np.asarray(prob_fn(a))
-                return vad_probs
+                def cached_prob_fn(a):
+                    nonlocal vad_probs
+                    vad_probs = np.asarray(prob_fn(a))
+                    return vad_probs
 
-            segs = vad_mod.get_vad_segments(audio, cached_prob_fn,
-                                            progress_callback=self._emit)
-            self._emit(f"PHASE:VAD|Found {len(segs)} speech segments|100")
-            if not self.config.get("skip_preprocessing", False):
-                try:
-                    t_pre = time.time()
-                    audio = preprocess_audio(
-                        audio, segs, SAMPLE_RATE,
-                        enable_rms_normalize=self.config.get(
-                            "preprocess_rms_normalize", False),
-                        progress_callback=self._emit)
-                    timing["preprocessing"] = time.time() - t_pre
-                except Exception:
-                    pass
-            segs = chunking.merge_vad_gaps(segs)
-            concat_audio, offset_map = vad_mod.concat_speech(audio, segs)
-        except Exception as e:
-            if str(e) != "VAD_BYPASSED_BY_USER":
-                self._emit(f"PHASE:LoadAudio|VAD failed ({e}); "
-                           "silence-based chunking|60")
-            concat_audio = audio
-            offset_map = [(0, 0, total_samples)]
-        timing["vad"] = time.time() - t_vad
+                segs = vad_mod.get_vad_segments(audio, cached_prob_fn,
+                                                progress_callback=self._emit)
+                self._emit(f"PHASE:VAD|Found {len(segs)} speech segments|100")
+                if not self.config.get("skip_preprocessing", False):
+                    try:
+                        with trace.span("preprocessing") as sp:
+                            audio = preprocess_audio(
+                                audio, segs, SAMPLE_RATE,
+                                enable_rms_normalize=self.config.get(
+                                    "preprocess_rms_normalize", False),
+                                progress_callback=self._emit)
+                        timing["preprocessing"] = sp.seconds
+                    except Exception:
+                        pass
+                segs = chunking.merge_vad_gaps(segs)
+                concat_audio, offset_map = vad_mod.concat_speech(audio, segs)
+            except Exception as e:
+                if str(e) != "VAD_BYPASSED_BY_USER":
+                    self._emit(f"PHASE:LoadAudio|VAD failed ({e}); "
+                               "silence-based chunking|60")
+                concat_audio = audio
+                offset_map = [(0, 0, total_samples)]
+        timing["vad"] = sp_vad.seconds
         if self._cancelled():
             return None
 
@@ -340,78 +342,82 @@ class TranscriberPipeline:
                 and self.config.get("quality_overlap_decode", True)):
             self._start_quality(concat_audio)
 
-        silent = chunking.find_silent_regions(concat_audio)
-        plan = chunking.plan_chunks(len(concat_audio), silent)
+        with trace.span("plan"):
+            silent = chunking.find_silent_regions(concat_audio)
+            plan = chunking.plan_chunks(len(concat_audio), silent)
 
         # ---- Batched decode (shared fbank in ROVER mode) ----
-        t_dec = time.time()
-        is_rover = self.model_b is not None
-        label = "Transcribing (ROVER)" if is_rover else "Transcribing"
-        self._emit(f"PHASE:Transcription|{label}|0")
-        chunk_transform = None
-        if self.config.get("preprocess_wpe", False):
-            def chunk_transform(chunk):
-                try:
-                    return adaptive_peak_limit(
-                        apply_wpe_dereverberation(chunk))
-                except Exception:
-                    return chunk
-        # Lossless int16 upload for audio decoded from 16-bit PCM, unless a
-        # float-valued chunk transform runs.
-        transfer_dtype = self.config.get("decode_transfer_dtype")
-        if (transfer_dtype is None and chunk_transform is None
-                and is_int16_exact(concat_audio)):
-            transfer_dtype = "int16"
-        decoder = self._decoder(transfer_dtype, chunk_transform)
-        spans = [(s, e) for s, e, _ in plan]
-        decoded = decoder.decode_spans(
-            concat_audio, spans, progress_callback=self._emit,
-            cancel_check=self.cancel_check)
-        if is_rover:
-            words_a_lists, words_b_lists = decoded
-            hotword_phrases = self.config.get("hotword_phrases") or []
-            chunk_words = []
-            for wa, wb in zip(words_a_lists, words_b_lists):
-                for w in wa + wb:
-                    w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
-                    w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
-                merged, _ = rover_merge_words(wa, wb, hotword_phrases)
-                chunk_words.append(merged)
-        else:
-            chunk_words = decoded
-            for words in chunk_words:
-                for w in words:
-                    w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
-                    w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
+        with trace.span("transcription") as sp:
+            is_rover = self.model_b is not None
+            label = "Transcribing (ROVER)" if is_rover else "Transcribing"
+            self._emit(f"PHASE:Transcription|{label}|0")
+            chunk_transform = None
+            if self.config.get("preprocess_wpe", False):
+                def chunk_transform(chunk):
+                    try:
+                        return adaptive_peak_limit(
+                            apply_wpe_dereverberation(chunk))
+                    except Exception:
+                        return chunk
+            # Lossless int16 upload for audio decoded from 16-bit PCM, unless a
+            # float-valued chunk transform runs.
+            transfer_dtype = self.config.get("decode_transfer_dtype")
+            if (transfer_dtype is None and chunk_transform is None
+                    and is_int16_exact(concat_audio)):
+                transfer_dtype = "int16"
+            decoder = self._decoder(transfer_dtype, chunk_transform)
+            spans = [(s, e) for s, e, _ in plan]
+            decoded = decoder.decode_spans(
+                concat_audio, spans, progress_callback=self._emit,
+                cancel_check=self.cancel_check)
+            if is_rover:
+                words_a_lists, words_b_lists = decoded
+                hotword_phrases = self.config.get("hotword_phrases") or []
+                chunk_words = []
+                for wa, wb in zip(words_a_lists, words_b_lists):
+                    for w in wa + wb:
+                        w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
+                        w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
+                    merged, _ = rover_merge_words(wa, wb, hotword_phrases)
+                    chunk_words.append(merged)
+            else:
+                chunk_words = decoded
+                for words in chunk_words:
+                    for w in words:
+                        w["start"] = vad_mod.map_concat_time(w["start"], offset_map)
+                        w["end"] = vad_mod.map_concat_time(w["end"], offset_map)
 
-        chunk_results = []
-        for (s, e, ov), words in zip(plan, chunk_words):
-            chunk_results.append({
-                "text": " ".join(w["text"] for w in words),
-                "words": words,
-                "audio_start_abs": s / SAMPLE_RATE,
-                "audio_end_abs": e / SAMPLE_RATE,
-                "overlap_sec": ov / SAMPLE_RATE,
-            })
-        timing["transcription"] = time.time() - t_dec
+            chunk_results = []
+            for (s, e, ov), words in zip(plan, chunk_words):
+                chunk_results.append({
+                    "text": " ".join(w["text"] for w in words),
+                    "words": words,
+                    "audio_start_abs": s / SAMPLE_RATE,
+                    "audio_end_abs": e / SAMPLE_RATE,
+                    "overlap_sec": ov / SAMPLE_RATE,
+                })
+        timing["transcription"] = sp.seconds
         if self._cancelled():
             return None
 
         # ---- Merge overlaps, suspects, fillers ----
-        t_merge = time.time()
-        all_words, full_text = merge_chunks_with_overlap(chunk_results)
-        disagree = rebuild_disagree_indices(all_words) if is_rover else None
-        all_words = suspect_detect(all_words, audio, disagree_indices=disagree,
-                                   vad_probs=vad_probs)
-        all_words = remove_filler_words(all_words)
-        full_text = " ".join(w["text"] for w in all_words)
-        if full_text:
-            full_text = full_text.capitalize()
-        timing["merge_suspect"] = time.time() - t_merge
+        with trace.span("merge_suspect") as sp:
+            with trace.span("merge"):
+                all_words, full_text = merge_chunks_with_overlap(chunk_results)
+            disagree = rebuild_disagree_indices(all_words) if is_rover else None
+            with trace.span("suspect"):
+                all_words = suspect_detect(all_words, audio,
+                                           disagree_indices=disagree,
+                                           vad_probs=vad_probs)
+                all_words = remove_filler_words(all_words)
+            full_text = " ".join(w["text"] for w in all_words)
+            if full_text:
+                full_text = full_text.capitalize()
+        timing["merge_suspect"] = sp.seconds
 
         self._save_checkpoint(all_words, full_text, len(concat_audio),
                               vad_probs)
-        return self._finish(t0, timing, audio, total_samples, all_words,
+        return self._finish(t0_ns, timing, audio, total_samples, all_words,
                             full_text, concat_audio)
 
     def _start_quality(self, concat_audio):
@@ -423,21 +429,24 @@ class TranscriberPipeline:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(device))
 
+        record = trace.current()
+
         def worker():
-            t_q = time.time()
             try:
-                if ready is None:
-                    qbg["result"] = analyzer.analyze_speech(concat_audio)
-                else:
-                    stream = torch.cuda.Stream(device)
-                    stream.wait_event(ready)
-                    with torch.cuda.stream(stream):
-                        qbg["result"] = analyzer.analyze_speech(concat_audio)
-                    stream.synchronize()
-            except Exception as e:  # re-raised by _finish
-                qbg["error"] = e
+                with trace.joined(record), trace.span("quality_overlapped") as sp:
+                    try:
+                        if ready is None:
+                            qbg["result"] = analyzer.analyze_speech(concat_audio)
+                        else:
+                            stream = torch.cuda.Stream(device)
+                            stream.wait_event(ready)
+                            with torch.cuda.stream(stream):
+                                qbg["result"] = analyzer.analyze_speech(concat_audio)
+                            stream.synchronize()
+                    except Exception as e:  # re-raised by _finish
+                        qbg["error"] = e
+                qbg["sec"] = sp.seconds
             finally:
-                qbg["sec"] = time.time() - t_q
                 qbg["done"].set()
 
         qbg["thread"] = threading.Thread(target=worker, daemon=True,
@@ -449,21 +458,21 @@ class TranscriberPipeline:
         """quality_info: the background pass's result when it ran, else
         analyze_speech now; timing keys quality (what the stage cost the
         pipeline) and quality_overlapped (the background pass's own time)."""
-        t_q = time.time()
-        qbg, self._quality_bg = self._quality_bg, None
-        quality_info = None
-        if qbg is not None:
-            self._emit("PHASE:QualityAnalysis|Analyzing audio quality|0")
-            qbg["done"].wait()
-            if "error" in qbg:
-                raise qbg["error"]
-            quality_info = qbg.get("result")
-            self._emit("PHASE:QualityAnalysis|Done|100")
-        if quality_info is None:
-            self._emit("PHASE:QualityAnalysis|Analyzing audio quality|0")
-            quality_info = self.quality_analyzer.analyze_speech(concat_audio)
-            self._emit("PHASE:QualityAnalysis|Done|100")
-        timing["quality"] = time.time() - t_q
+        with trace.span("quality") as sp:
+            qbg, self._quality_bg = self._quality_bg, None
+            quality_info = None
+            if qbg is not None:
+                self._emit("PHASE:QualityAnalysis|Analyzing audio quality|0")
+                qbg["done"].wait()
+                if "error" in qbg:
+                    raise qbg["error"]
+                quality_info = qbg.get("result")
+                self._emit("PHASE:QualityAnalysis|Done|100")
+            if quality_info is None:
+                self._emit("PHASE:QualityAnalysis|Analyzing audio quality|0")
+                quality_info = self.quality_analyzer.analyze_speech(concat_audio)
+                self._emit("PHASE:QualityAnalysis|Done|100")
+        timing["quality"] = sp.seconds
         if qbg is not None:
             timing["quality_overlapped"] = qbg.get("sec", 0.0)
         return quality_info
@@ -471,29 +480,29 @@ class TranscriberPipeline:
     def _punctuate(self, full_text, all_words, word_speaker, timing):
         """(text, segments): the restored text and its sentences aligned
         to the words, split by speaker when diarized."""
-        t_punct = time.time()
-        self._emit("PHASE:Punctuation|Restoring punctuation|0")
-        pause_hints = build_pause_hints(all_words, word_speaker=word_speaker)
-        full_text = self.punct_restorer.restore(full_text, pause_hints=pause_hints)
-        timing["punctuation"] = time.time() - t_punct
-        t_align = time.time()
-        self._emit("PHASE:Align|Aligning timestamps|0")
-        sentences = split_sentences(full_text)
-        if word_speaker is not None:
-            names = [dp.speaker_name(s) for s in word_speaker]
-            segments = align_sentences_with_speakers(sentences, all_words,
-                                                     word_speaker, names)
-            segments = dp.smooth_speaker_boundary_fragments(segments)
-        else:
-            segments = align_sentences(sentences, all_words)
-        timing["alignment"] = time.time() - t_align
+        with trace.span("punctuation") as sp:
+            self._emit("PHASE:Punctuation|Restoring punctuation|0")
+            pause_hints = build_pause_hints(all_words, word_speaker=word_speaker)
+            full_text = self.punct_restorer.restore(full_text, pause_hints=pause_hints)
+        timing["punctuation"] = sp.seconds
+        with trace.span("alignment") as sp:
+            self._emit("PHASE:Align|Aligning timestamps|0")
+            sentences = split_sentences(full_text)
+            if word_speaker is not None:
+                names = [dp.speaker_name(s) for s in word_speaker]
+                segments = align_sentences_with_speakers(sentences, all_words,
+                                                         word_speaker, names)
+                segments = dp.smooth_speaker_boundary_fragments(segments)
+            else:
+                segments = align_sentences(sentences, all_words)
+        timing["alignment"] = sp.seconds
         return full_text, segments
 
     def _diarize(self):
         return (self.config.get("speaker_diarization", False)
                 and self.diarizer is not None)
 
-    def _finish(self, t0, timing, audio, total_samples, all_words, full_text,
+    def _finish(self, t0_ns, timing, audio, total_samples, all_words, full_text,
                 concat_audio):
         """Quality, speaker diarization, punctuation and alignment (or pause
         segmentation) and result assembly. Entered either from a live
@@ -506,36 +515,36 @@ class TranscriberPipeline:
         overlap_segments = []
         word_speaker = None
         if self._diarize() and all_words:
-            t_diar = time.time()
-            self._emit("PHASE:Diarization|Detecting speakers|0")
+            with trace.span("diarization") as sp:
+                self._emit("PHASE:Diarization|Detecting speakers|0")
 
-            def diar_progress(pct, total=100):
-                self._emit(f"PHASE:Diarization|Detecting speakers|{pct}")
+                def diar_progress(pct, total=100):
+                    self._emit(f"PHASE:Diarization|Detecting speakers|{pct}")
 
-            # The facade returns post-processed [Segment]; a raw backend
-            # returns [{"start","end","speaker"}] that still needs the
-            # post-processing (gap merge, NaturalTurn, fragment resolve).
-            if isinstance(self.diarizer, SpeakerDiarizer):
-                raw_speaker_segments = self.diarizer.process(
-                    audio, progress_callback=diar_progress, asr_words=all_words)
-            else:
-                raw = self.diarizer.process(audio, progress_callback=diar_progress)
-                raw_speaker_segments = dp.post_process_diarization_segments(
-                    [dp.Segment(s["start"], s["end"], s["speaker"]) for s in raw],
-                    asr_words=all_words)
-            speaker_segments_raw = [{
-                "speaker": dp.speaker_name(s.speaker),
-                "speaker_id": s.speaker,
-                "start": s.start, "end": s.end,
-                "duration": s.end - s.start,
-            } for s in raw_speaker_segments]
-            word_speaker = dp.speaker_labels_for_words(all_words,
-                                                       raw_speaker_segments)
-            self._emit("PHASE:Diarization|Done|100")
-            if self.config.get("overlap_separation", False):
-                overlap_segments = self._run_overlap_separation(
-                    audio, raw_speaker_segments, timing)
-            timing["diarization"] = time.time() - t_diar
+                # The facade returns post-processed [Segment]; a raw backend
+                # returns [{"start","end","speaker"}] that still needs the
+                # post-processing (gap merge, NaturalTurn, fragment resolve).
+                if isinstance(self.diarizer, SpeakerDiarizer):
+                    raw_speaker_segments = self.diarizer.process(
+                        audio, progress_callback=diar_progress, asr_words=all_words)
+                else:
+                    raw = self.diarizer.process(audio, progress_callback=diar_progress)
+                    raw_speaker_segments = dp.post_process_diarization_segments(
+                        [dp.Segment(s["start"], s["end"], s["speaker"]) for s in raw],
+                        asr_words=all_words)
+                speaker_segments_raw = [{
+                    "speaker": dp.speaker_name(s.speaker),
+                    "speaker_id": s.speaker,
+                    "start": s.start, "end": s.end,
+                    "duration": s.end - s.start,
+                } for s in raw_speaker_segments]
+                word_speaker = dp.speaker_labels_for_words(all_words,
+                                                           raw_speaker_segments)
+                self._emit("PHASE:Diarization|Done|100")
+                if self.config.get("overlap_separation", False):
+                    overlap_segments = self._run_overlap_separation(
+                        audio, raw_speaker_segments, timing)
+            timing["diarization"] = sp.seconds
         if self._cancelled():
             return None
         final_segments = []
@@ -544,22 +553,22 @@ class TranscriberPipeline:
                 and self.punct_restorer is not None and full_text):
             full_text, final_segments = self._punctuate(full_text, all_words,
                                                         word_speaker, timing)
-        t_align = time.time()
-        if not final_segments:
-            self._emit("PHASE:Align|Aligning timestamps|0")
-            final_segments = segment_words_by_pause(all_words)
-            if raw_speaker_segments is not None:
-                final_segments = dp.process_with_transcription(
-                    final_segments, raw_speaker_segments)
-                final_segments = dp.smooth_speaker_boundary_fragments(final_segments)
-        final_segments = fix_overlapping_segments(final_segments)
-        final_segments = split_long_segments(final_segments, max_duration=12.0,
-                                             preserve_raw_words=True)
-        timing["alignment"] += time.time() - t_align
+        with trace.span("alignment") as sp:
+            if not final_segments:
+                self._emit("PHASE:Align|Aligning timestamps|0")
+                final_segments = segment_words_by_pause(all_words)
+                if raw_speaker_segments is not None:
+                    final_segments = dp.process_with_transcription(
+                        final_segments, raw_speaker_segments)
+                    final_segments = dp.smooth_speaker_boundary_fragments(final_segments)
+            final_segments = fix_overlapping_segments(final_segments)
+            final_segments = split_long_segments(final_segments, max_duration=12.0,
+                                                 preserve_raw_words=True)
+        timing["alignment"] += sp.seconds
         self._emit("PHASE:Align|Done|100")
 
         self._emit("PHASE:Complete|Done|100")
-        total = time.time() - t0
+        total = (time.perf_counter_ns() - t0_ns) / 1e9
         word_probs = [w.get("prob") for w in all_words
                       if w.get("prob") is not None]
         device = self.model.device
@@ -606,44 +615,44 @@ class TranscriberPipeline:
         overlap_regions = list(getattr(self.diarizer, "overlap_regions", None) or [])
         if not overlap_regions:
             return []
-        t0 = time.time()
-        self._emit(f"PHASE:OverlapSep|Separating overlaps "
-                   f"({len(overlap_regions)} regions)|0")
-        from sherpa_vietnamese_asr_tpu_torch.pipeline.overlap import OverlapSeparator
+        with trace.span("overlap_separation") as sp:
+            self._emit(f"PHASE:OverlapSep|Separating overlaps "
+                       f"({len(overlap_regions)} regions)|0")
+            from sherpa_vietnamese_asr_tpu_torch.pipeline.overlap import OverlapSeparator
 
-        sep = (self.config.get("_overlap_separator")
-               or OverlapSeparator(device=self.model.device))
-        seg_dicts = [{"start": s.start, "end": s.end, "speaker": s.speaker}
-                     for s in raw_speaker_segments]
-        results = sep.process(
-            audio, seg_dicts, overlap_regions,
-            progress_callback=lambda pct: self._emit(
-                f"PHASE:OverlapSep|Separating overlaps|{int(pct)}"))
-        decoder = BatchedChunkDecoder(self.model, max_batch=self.max_batch)
-        ov_segments = []
-        for ri, reg in enumerate(results):
-            self._emit(f"PHASE:OverlapSep|Re-ASR overlap "
-                       f"{ri + 1}/{len(results)}|"
-                       f"{int(50 + (ri + 1) / max(1, len(results)) * 40)}")
-            for spk, spk_audio in reg["audio_per_speaker"].items():
-                real_s = reg["real_start_per_speaker"][spk]
-                real_e = reg["real_end_per_speaker"][spk]
-                words = decoder.decode_spans(spk_audio.astype(np.float32),
-                                             [(0, len(spk_audio))])[0]
-                shift = reg["start"] - real_s
-                kept = [dict(w, start=w["start"] + shift, end=w["end"] + shift)
-                        for w in words
-                        if real_s <= (w["start"] + w["end"]) / 2 <= real_e]
-                text = " ".join(w["text"] for w in kept if w.get("text")).strip()
-                if not text:
-                    continue
-                ov_segments.append({
-                    "speaker": f"Người nói {spk + 1}",
-                    "speaker_id": int(spk),
-                    "start": reg["start"], "end": reg["end"],
-                    "text": text, "raw_words": kept, "overlap": True,
-                })
-        timing["overlap_separation"] = time.time() - t0
+            sep = (self.config.get("_overlap_separator")
+                   or OverlapSeparator(device=self.model.device))
+            seg_dicts = [{"start": s.start, "end": s.end, "speaker": s.speaker}
+                         for s in raw_speaker_segments]
+            results = sep.process(
+                audio, seg_dicts, overlap_regions,
+                progress_callback=lambda pct: self._emit(
+                    f"PHASE:OverlapSep|Separating overlaps|{int(pct)}"))
+            decoder = BatchedChunkDecoder(self.model, max_batch=self.max_batch)
+            ov_segments = []
+            for ri, reg in enumerate(results):
+                self._emit(f"PHASE:OverlapSep|Re-ASR overlap "
+                           f"{ri + 1}/{len(results)}|"
+                           f"{int(50 + (ri + 1) / max(1, len(results)) * 40)}")
+                for spk, spk_audio in reg["audio_per_speaker"].items():
+                    real_s = reg["real_start_per_speaker"][spk]
+                    real_e = reg["real_end_per_speaker"][spk]
+                    words = decoder.decode_spans(spk_audio.astype(np.float32),
+                                                 [(0, len(spk_audio))])[0]
+                    shift = reg["start"] - real_s
+                    kept = [dict(w, start=w["start"] + shift, end=w["end"] + shift)
+                            for w in words
+                            if real_s <= (w["start"] + w["end"]) / 2 <= real_e]
+                    text = " ".join(w["text"] for w in kept if w.get("text")).strip()
+                    if not text:
+                        continue
+                    ov_segments.append({
+                        "speaker": f"Người nói {spk + 1}",
+                        "speaker_id": int(spk),
+                        "start": reg["start"], "end": reg["end"],
+                        "text": text, "raw_words": kept, "overlap": True,
+                    })
+        timing["overlap_separation"] = sp.seconds
         self._emit(f"PHASE:OverlapSep|Done "
                    f"({len(ov_segments)} parallel segments)|100")
         return ov_segments
@@ -654,15 +663,17 @@ class TranscriberPipeline:
         from sherpa_vietnamese_asr_tpu_torch.models import assets, convert, silero_vad
 
         device = self.model.device
-        loaded = assets.load_silero()
-        if loaded is not None:
-            state, cfg = loaded
-            vad = convert.silero_from_numpy(state, cfg, device=device)
-        else:
-            assets.warn_random("Silero VAD")
-            vad = silero_vad.random_silero_vad(device=device)
+        with trace.span("vad_build"):
+            loaded = assets.load_silero()
+            if loaded is not None:
+                state, cfg = loaded
+                vad = convert.silero_from_numpy(state, cfg, device=device)
+            else:
+                assets.warn_random("Silero VAD")
+                vad = silero_vad.random_silero_vad(device=device)
 
         def prob_fn(a):
-            return silero_vad.silero_vad_probs_streamed(vad, a).cpu().numpy()
+            with trace.span("vad_probs"):
+                return silero_vad.silero_vad_probs_streamed(vad, a).cpu().numpy()
 
         return prob_fn

@@ -26,8 +26,16 @@ torch.profiler, and prints:
     score pass, depthwise conv and elementwise passes, and the wrapper's
     host time per layer (its "svt_encoder_layer" span, under the profiler)
     against the layer's device time;
+  - the ten longest idle gaps of the profiled request (stretches inside its
+    svt_request range with no kernel or copy on the card), each named by
+    the innermost program range (utils/trace's svt_ spans) over the gap's
+    middle, with each program range's self time over the gap: the part of
+    the gap in which it is the innermost open range;
   - the warm wall time and real-time factor of a longer request, and its
-    device busy time and idle share from one more run under the profiler;
+    device busy time, idle share and ten longest idle gaps from one more
+    run under the profiler;
+  - the cost of one span (utils/trace.span inside a request) with the
+    profiler off and with it on (CPU and CUDA activities);
   - with --vad, the VAD's own device time (silero_vad_probs_streamed alone
     on audio of each request's length, under the profiler);
   - with --diarize, the requests' `diarization` timing key and one full
@@ -51,8 +59,10 @@ import time
 
 import numpy as np
 
+from sherpa_vietnamese_asr_tpu_torch.utils.trace import PREFIX
+
 SR = 16000
-LAYER_SPAN = "svt_encoder_layer"  # ops/encoder_layer's host range around one layer
+LAYER_SPAN = PREFIX + "encoder_layer"  # ops/encoder_layer's host range around one layer
 # Device kernels of the whole-layer kernel (csrc/encoder_layer.cu) by part.
 LAYER_PARTS = (("products", ("product_kernel",)), ("score pass", ("attn_bf16_kernel",)),
                ("depthwise conv", ("dwconv_kernel",)),
@@ -94,19 +104,20 @@ def synthetic_hotword_tables(vocab, device, n_phrases=30, seed=5):
     return tables.to(device)
 
 
+def _merged(intervals):
+    """The union of [start, end) intervals as sorted disjoint [start, end]."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
 def _busy_ms(intervals):
     """Length of the union of [start, end) microsecond intervals, in ms."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3
+    return sum(e - s for s, e in _merged(intervals)) / 1e3
 
 
 def _device_events(prof):
@@ -116,7 +127,88 @@ def _device_events(prof):
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.name.startswith("Activity Buffer")
-            and not getattr(e, "is_user_annotation", False) and e.name != LAYER_SPAN]
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(PREFIX)]
+
+
+def _program_ranges(prof):
+    """[(span name, start us, end us)] of the program's host ranges."""
+    import torch
+
+    return [(e.name[len(PREFIX):], e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name.startswith(PREFIX)]
+
+
+def idle_gaps(device, ranges, start, end, n=10):
+    """The n longest stretches of [start, end] (us) with no device interval
+    of `device` [(start, end)], longest first: [(gap ms, the innermost range
+    of `ranges` [(name, start, end)] over the gap's middle or "none",
+    {range name or "none": ms of the gap in which it is the innermost open
+    range})]."""
+    busy = [(s, e) for s, e in _merged(device) if e > start and s < end]
+    edges = [start] + [x for s, e in busy for x in (s, e)] + [end]
+    gaps = sorted(((a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a),
+                  key=lambda g: g[0] - g[1])[:n]
+
+    def innermost(over, t):
+        inside = [(e - s, name) for name, s, e in over if s <= t <= e]
+        return min(inside)[1] if inside else "none"
+
+    out = []
+    for a, b in gaps:
+        over = [r for r in ranges if r[1] < b and r[2] > a]
+        cuts = sorted({a, b} | {x for _, s, e in over for x in (s, e) if a < x < b})
+        self_ms = collections.defaultdict(float)
+        for p, q in zip(cuts, cuts[1:]):
+            self_ms[innermost(over, (p + q) / 2)] += (q - p) / 1e3
+        out.append(((b - a) / 1e3, innermost(over, (a + b) / 2),
+                    dict(sorted(self_ms.items(), key=lambda kv: -kv[1]))))
+    return out
+
+
+def request_gaps(prof, n=10):
+    """idle_gaps of the profiled request (the longest svt_request range)
+    over the card's kernels and copies; [] if the profile holds no request."""
+    ranges = _program_ranges(prof)
+    requests = [(s, e) for name, s, e in ranges if name == "request"]
+    if not requests:
+        return []
+    start, end = max(requests, key=lambda b: b[1] - b[0])
+    device = [(e.time_range.start, e.time_range.end) for e in _device_events(prof)]
+    return idle_gaps(device, ranges, start, end, n)
+
+
+def print_gaps(title, gaps):
+    print(f"{title}: the {len(gaps)} longest idle gaps on the card, each named by the "
+          "innermost program range over its middle; self ms of each range over the gap")
+    for ms, name, parts in gaps:
+        print(f"  {ms:9.3f} ms  {name:16s} " + ", ".join(
+            f"{part} {part_ms:.3f}" for part, part_ms in parts.items()))
+
+
+def span_cost_us(n_off=200_000, n_on=20_000):
+    """Microseconds of one `with trace.span(...)` inside a request, with the
+    profiler off and with it on (CPU and CUDA activities): {"profiler_off",
+    "profiler_on"}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sherpa_vietnamese_asr_tpu_torch.utils import trace
+
+    def loop(n):
+        with trace.request("span-cost"):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with trace.span("decode_upload"):
+                    pass
+            return (time.perf_counter() - t0) / n * 1e6
+
+    loop(1000)
+    off = loop(n_off)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = loop(n_on)
+    return {"profiler_off": off, "profiler_on": on}
 
 
 def layer_split(per_name):
@@ -187,9 +279,9 @@ def _profile_window(fn, reps):
     return _device_events(prof)
 
 
-def _profiled_busy(fn):
-    """(device busy ms, wall ms) of one call of fn() under the profiler,
-    after a warm-up step. fn must run on the card: a window that saw no
+def _profiled(fn):
+    """(profile, device events, wall ms) of one call of fn() under the
+    profiler, after a warm-up step. fn must run on the card: a window that saw no
     device event lost its events and is taken again after a pause, at most
     PROFILE_WINDOWS windows, and then this raises."""
     import torch
@@ -208,10 +300,17 @@ def _profiled_busy(fn):
             prof.step()
         events = _device_events(prof)
         if events:
-            return _busy_ms([(e.time_range.start, e.time_range.end) for e in events]), wall * 1e3
+            return prof, events, wall * 1e3
         print("profile window lost events: 0 device events; window discarded", flush=True)
         time.sleep(LOST_WINDOW_PAUSE_S)
     raise RuntimeError(f"profiler lost events in each of {PROFILE_WINDOWS} windows")
+
+
+def _profiled_busy(fn):
+    """(device busy ms, wall ms) of one call of fn() under the profiler
+    (_profiled)."""
+    _, events, wall_ms = _profiled(fn)
+    return _busy_ms([(e.time_range.start, e.time_range.end) for e in events]), wall_ms
 
 
 def event_ms(fn, reps=5):
@@ -376,13 +475,16 @@ def main(argv=None):
         long_res = request(long_path)
         torch.cuda.synchronize()
         long_wall = time.perf_counter() - t0
-        long_busy, long_profiled_ms = _profiled_busy(lambda: request(long_path))
+        long_prof, long_events, long_profiled_ms = _profiled(lambda: request(long_path))
+        long_busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in long_events])
+        long_gaps = request_gaps(long_prof)
         vad_ms = None
         if args.vad:
             vad_ms = {seconds: vad_device_ms(am_tone(seconds, seed), dev)
                       for seconds, seed in ((args.seconds, 3), (args.long_seconds, 4))}
         diar_parts = diarization_parts(stages["diarizer"], am_tone(args.long_seconds, 4)) \
             if args.diarize else None
+        span_cost = span_cost_us()
 
     if args.trace:
         prof.export_chrome_trace(args.trace)
@@ -394,6 +496,7 @@ def main(argv=None):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[: args.top]
 
     wall_ms = wall * 1e3
+    gaps = request_gaps(prof)
     layer = None
     spans = [e for e in prof.events()
              if e.name == LAYER_SPAN and e.device_type == torch.autograd.DeviceType.CPU]
@@ -416,11 +519,15 @@ def main(argv=None):
                   f"{part} {ms:.3f} ms" for part, ms in layer["device_ms"].items()))
         print(f"whole-layer kernel per layer: host {layer['host_ms_per_layer']:.3f} ms "
               f"(wrapper span) vs device {layer['device_ms_per_layer']:.3f} ms")
+    print_gaps(f"request {args.seconds} s", gaps)
     print(f"request {args.long_seconds} s warm: wall {long_wall:.3f} s, "
           f"{args.long_seconds / long_wall:.1f}x real time, "
           f"timing {json.dumps(long_res['timing'])}")
     print(f"request {args.long_seconds} s under the profiler: wall {long_profiled_ms:.3f} ms, "
           f"device busy {long_busy:.3f} ms, idle share {1 - long_busy / long_profiled_ms:.3f}")
+    print_gaps(f"request {args.long_seconds} s", long_gaps)
+    print(f"one span: {span_cost['profiler_off']:.3f} us with the profiler off, "
+          f"{span_cost['profiler_on']:.3f} us with it on")
     if vad_ms:
         for seconds, (busy_ms, per_name) in vad_ms.items():
             print(f"VAD alone, {seconds} s: device {busy_ms:.3f} ms: " + ", ".join(
@@ -443,7 +550,8 @@ def main(argv=None):
         "long_request_s": args.long_seconds, "long_wall_s": long_wall,
         "long_timing": long_res["timing"], "long_profiled_wall_ms": long_profiled_ms,
         "long_device_busy_ms": long_busy,
-        "long_idle_share": 1 - long_busy / long_profiled_ms, "vad": args.vad,
+        "long_idle_share": 1 - long_busy / long_profiled_ms, "idle_gaps": gaps,
+        "long_idle_gaps": long_gaps, "span_cost_us": span_cost, "vad": args.vad,
         "vad_device_ms": vad_ms and {s: ms for s, (ms, _) in vad_ms.items()},
         "diarize": args.diarize, "diarization_parts_ms": diar_parts,
         "punctuate": args.punctuate, "quality": args.quality}))
