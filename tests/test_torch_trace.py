@@ -5,6 +5,7 @@
 #   (b) each timing key is the duration of its span(s);
 #   (c) the result's keys and timing keys still equal the JAX package's;
 #   (d) decode_rows + decode_pad_rows are the rows of the launched batches;
+#       decode_words_tables counts one vocabulary table for the two runs;
 #   (e) a request that raises is flagged, one that is cancelled is not;
 #   (f) the ring keeps its bound;
 #   (g) the quality thread's span joins its request; counters from threads
@@ -211,12 +212,22 @@ def test_result_and_timing_keys_equal_the_jax_package(runs):
 @pytest.mark.parametrize("case", CASES)
 def test_row_counters_are_the_launched_rows(runs, case):
     _, (rec,), launches, _ = runs[case]
-    assert launches and rec.counters == {
+    counters = dict(rec.counters)
+    counters.pop("decode_words_tables", None)  # the next test reads it
+    assert launches and counters == {
         "decode_rows": sum(r for r, _ in launches),
         "decode_pad_rows": sum(b - r for r, b in launches)}
     assert rec.counters["decode_pad_rows"] > 0  # the last batch is padded
     launched = sum(1 for name, *_ in rec.spans if name == "decode_enqueue")
     assert launched == len(launches)
+
+
+def test_a_vocabulary_table_is_built_by_one_request_only(runs):
+    # Both runs share one model: its first request builds the word
+    # builder's table of the vocabulary, the other reuses it.
+    built = [runs[case][1][0].counters.get("decode_words_tables", 0)
+             for case in CASES]
+    assert sorted(built) == [0, 1]
 
 
 @pytest.mark.parametrize("fault", ["missing file", "decode raises", "cancelled"])
