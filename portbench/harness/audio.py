@@ -1,5 +1,6 @@
 """Audio content of the traffic mixes, made from the seed. Each kind is
-a function (seconds, numpy Generator) -> float32 samples at 16 kHz."""
+a function (seconds, numpy Generator, **params) -> float32 samples at
+16 kHz; a mix's "content_params" are its params."""
 
 from __future__ import annotations
 
@@ -54,7 +55,41 @@ def speechlike(seconds, rng):
     return np.resize(_speechlike_period(), n) + np.float32(0.05) * rng.standard_normal(n, dtype=np.float32)
 
 
-KINDS = {"two_speakers": two_speakers, "speechlike": speechlike}
+@functools.lru_cache(maxsize=1)
+def _speaker_periods():
+    """10 s of each "speaker" of two_speakers, after which its tone repeats
+    (carriers and AM rates whole cycles in 10 s)."""
+    return (_tone(10, [(0.3, 180.0, 2.1)]).astype(np.float32),
+            _tone(10, [(0.3, 320.0, 3.3)]).astype(np.float32))
+
+
+def turn_lengths(seconds, turn_s, gap_s):
+    """The turn lengths of a recording of `seconds`: evenly spaced over
+    [turn_s[0], turn_s[1]], as many as fill it; the same set for every seed."""
+    lo, hi = turn_s
+    n = int(np.ceil(seconds / ((lo + hi) / 2 + gap_s))) + 1
+    return np.linspace(lo, hi, n)
+
+
+def two_speaker_turns(seconds, rng, turn_s=(5.0, 20.0), gap_s=1.0, noise=0.01):
+    """Two alternating "speakers" (the AM tones of two_speakers) in turns
+    whose lengths, the set of turn_lengths, come in an order drawn from rng,
+    each followed by `gap_s` of silence; the last turn is cut by the end;
+    noise at `noise` everywhere."""
+    n = int(RATE * seconds)
+    a, b = (np.resize(p, n) for p in _speaker_periods())
+    x = np.zeros(n, np.float32)
+    pos = 0
+    for k, length in enumerate(rng.permutation(turn_lengths(seconds, turn_s, gap_s))):
+        end = min(n, pos + int(round(RATE * length)))
+        x[pos:end] = (a if k % 2 == 0 else b)[pos:end]
+        pos = end + int(round(RATE * gap_s))
+        if pos >= n:
+            break
+    return x + np.float32(noise) * rng.standard_normal(n, dtype=np.float32)
+
+
+KINDS = {"two_speakers": two_speakers, "speechlike": speechlike, "two_speaker_turns": two_speaker_turns}
 
 
 def write_wav(path, audio):

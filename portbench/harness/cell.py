@@ -92,16 +92,21 @@ def run_offline(cfg, mix, seed, seconds, trace, device, log):
         cell.setup(work)
         cell.warm()
         t["setup_done"] = time.perf_counter()
-        with stats.GcClock() as gc_clock:
+        with stats.GcClock() as gc_clock, stats.HostClock() as host_clock:
             records, failed, attempted, window = cell.window(seconds)
         t.update(requests=records, window_s=window, rows=list(cell.rec.rows))
         walls = sorted(r["wall_s"] for r in records)
         if walls:
+            by_file = {}
+            for r in records:
+                by_file.setdefault(r["audio_s"], []).append(r["wall_s"])
             log(f"window: {len(walls)} requests in {window:.3f} s, wall min {walls[0]:.4f} median "
                 f"{walls[len(walls) // 2]:.4f} max {walls[-1]:.4f} s; {gc_clock}; "
                 f"{len(t['rows'])} decode launches, {sum(r for r, _ in t['rows'])} real rows, "
                 f"{sum(r['words'] for r in records)} words; order "
                 + " ".join(str(int(r['audio_s'])) for r in records[:len(cell.pool)]))
+            log(f"host: {host_clock}; median wall by file: " + " ".join(
+                f"{int(d)} s {sorted(w)[len(w) // 2]:.4f} ({len(w)})" for d, w in sorted(by_file.items())))
         if device.type == "cuda":
             torch.cuda.synchronize()
             t["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -118,8 +123,12 @@ def run_offline(cfg, mix, seed, seconds, trace, device, log):
         cell.rec.captured.clear()
         if device.type == "cuda":
             torch.cuda.empty_cache()
+        t_check = time.perf_counter()
         checks = check_offline.judge_all(cfg, cell.weights, cell.vad_weights,
-                                         [(paths[i], got[i]) for i in cell.sample], device)
+                                         [(paths[i], got[i]) for i in cell.sample], device,
+                                         cell.stage_refs())
+        log(f"check: {len(cell.sample)} requests against the reference in "
+            f"{time.perf_counter() - t_check:.3f} s")
     return t, checks, attempted, failed
 
 

@@ -32,6 +32,11 @@ the reference, which reads the request's file itself:
                    one alignment (its tokens at their frames, blank
                    elsewhere) on the program's encoder output.
 
+With stage models (a mix whose options turn on diarization, punctuation or
+quality; portbench/harness/stages), each stage's kind adds its numbers
+(seg_rel_err, embed_cos_gap, punct_logit_gap, dnsmos_abs_err), the
+reference reading the request's file itself for the audio the stage sees.
+
 A cell compares the numbers its limits name. With bfloat16-stored attention
 weights every float32 implementation, the reference against itself in
 float64 too, reads an encoder gap that grows as rows get shorter (3e-4 at 3
@@ -54,6 +59,7 @@ import math
 import numpy as np
 import torch
 
+from portbench.harness import stages as stages_mod
 from portbench.reference import fbank as ref_fbank
 from portbench.reference import host, rnnt, vad as ref_vad, zipformer as ref_zip
 from portbench.reference.precision import Precision
@@ -88,12 +94,14 @@ def rows_of(got):
     return out
 
 
-def judge_all(cfg, weights, vad_weights, requests, device):
+def judge_all(cfg, weights, vad_weights, requests, device, stages=()):
     """{name: number} of a run's sampled requests [(path, got)]: the worst
-    request's per-request numbers and the pooled ones."""
+    request's per-request numbers and the pooled ones. `stages`: [(entry,
+    state)] of the cell's stage models."""
     nums, pool = {}, {"enc_d2": 0.0, "enc_r2": 0.0, "deficit": 0.0, "frames": 0}
+    on_device = [(entry, stages_mod.to_device(state, device)) for entry, state in stages]
     for path, got in requests:
-        for name, v in judge(cfg, weights, vad_weights, path, got, device, pool).items():
+        for name, v in judge(cfg, weights, vad_weights, path, got, device, pool, on_device).items():
             nums[name] = _max(nums.get(name, 0.0), v)
     nums["encoder_pooled_rel_err"] = (math.sqrt(pool["enc_d2"] / pool["enc_r2"]) if pool["enc_r2"]
                                       else math.inf)
@@ -101,10 +109,11 @@ def judge_all(cfg, weights, vad_weights, requests, device):
     return nums
 
 
-def judge(cfg, weights, vad_weights, path, got, device, pool):
+def judge(cfg, weights, vad_weights, path, got, device, pool, stages=()):
     """{name: number} of one request, adding its rows to `pool` (judge_all):
     `got` holds "probs", "concat", "spans" and "batches" as rows_of gives
-    them."""
+    them, and "stages", the stage models' captures; `stages` [(entry,
+    weights on the device)]."""
     P = Precision("fp32")
     nums = dict.fromkeys(NAMES, 0.0)
     audio = host.read_request_audio(path)
@@ -164,19 +173,27 @@ def judge(cfg, weights, vad_weights, path, got, device, pool):
                 path_lp = rnnt.path_logprob(P, weights, e, toks, frames)
                 pool["deficit"] += ref_path - path_lp
                 pool["frames"] += t_len
+    ctx = {"audio": host.peak_limit(audio), "speech": speech}
+    for entry, w in stages:
+        with P.active():
+            nums.update(stages_mod.plugin(entry["kind"]).judge(entry["widths"], w, got["stages"], ctx,
+                                                               device, P))
     return nums
 
 
 def program_outputs(got):
     """The captured request in the form judge() reads."""
     return {"probs": got["probs"], "concat": got["concat"], "spans": got["spans"],
-            "rows": rows_of(got)}
+            "rows": rows_of(got), "stages": got}
 
 
-def control_outputs(cfg, weights, vad_weights, path, device, modes):
+def control_outputs(cfg, weights, vad_weights, path, device, modes, stages=(), program=None):
     """The reference put in the program's place, each stage in the
-    precision `modes` gives it ({"vad", "fbank", "encoder", "search"}),
-    in the same form as program_outputs."""
+    precision `modes` gives it ({"vad", "fbank", "encoder", "search"},
+    "stages" for the stage models), in the same form as program_outputs.
+    `stages` [(entry, state)]; `program` the program's captures of the same
+    request, whose inputs a stage that follows the program reads (ViBERT's
+    subword ids)."""
     audio = host.read_request_audio(path)
     probs = ref_vad.speech_probs(Precision(modes["vad"]), vad_weights, host.vad_input(audio),
                                  device).cpu().numpy()
@@ -205,4 +222,12 @@ def control_outputs(cfg, weights, vad_weights, path, device, modes):
                     "tok_logp": res["tok_logp"][r]}
             rows.append((b0 + r, feats[r], embs[r], enc_b[r], int(lens_b[r]), beam))
         batches.append((rows, enc_b, lens_b))
-    return {"probs": probs, "concat": speech, "spans": spans, "rows": batches}
+    got = {}
+    ctx = {"audio": host.peak_limit(audio), "speech": speech}
+    for entry, state in stages:
+        P = Precision(modes["stages"])
+        with P.active():
+            got.update(stages_mod.plugin(entry["kind"]).control(
+                entry["widths"], stages_mod.to_device(state, device), dict(program or {}, **got), ctx,
+                device, P))
+    return {"probs": probs, "concat": speech, "spans": spans, "rows": batches, "stages": got}

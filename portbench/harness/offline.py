@@ -1,12 +1,16 @@
 """Offline cells: requests through TranscriberPipeline.run() (the entry
 `transcribe` and the server's queue call) from one closed-loop client.
 
-Each request takes the pipeline's default VAD path, as `transcribe` and
-the queue do: the pipeline builds Silero on the card from
-assets.load_silero() on every request, and the benchmark's load_silero
-returns the benchmark's weights (a checkpoint would also be hashed there;
-that is the one per-request cost left out). The benchmark wraps, from its
-own files, the calls into the program's layers: the VAD's
+Each request passes the mix's "options" (none by default) to the
+pipeline, as the web service passes a job's settings, and takes the
+pipeline's default VAD path, as `transcribe` and the queue do: the
+pipeline builds Silero on the card from assets.load_silero() on every
+request, and the benchmark's load_silero returns the benchmark's weights
+(a checkpoint would also be hashed there; that is the one per-request cost
+left out). The stage models the options turn on (diarization, punctuation,
+quality) load the benchmark's weights in the same way, through their
+assets.load_* functions. The benchmark wraps, from its own files, the
+calls into the program's layers: the VAD's
 silero_vad_probs_streamed, the decoder's fbank_batch and beam search,
 BatchedChunkDecoder.decode_spans and _launch. The wrappers keep what
 sampled requests produced for the correctness check; with --trace 1 they
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from portbench.harness import audio as audio_mod
-from portbench.harness import profiling, traffic, weights
+from portbench.harness import profiling, stages, traffic, weights
 
 
 class Recorder:
@@ -39,6 +43,8 @@ class Recorder:
         self.reset_counts()
         self.rows = []  # (real rows, batch) of every decode launch
         self.silero = None  # (state, config) load_silero returns
+        self.plugins = []  # the kinds of the cell's stage models (harness/stages)
+        self.loaded = {}  # {assets loader name: (state, config)} of the stage models
 
     def reset_counts(self):
         self.launches = {"beam": [], "attention": [], "layer": [], "fbank": 0, "frames": []}
@@ -75,6 +81,9 @@ def wrappers(rec: Recorder, spans: bool):
 
     def load_silero(verify=True):
         return rec.silero
+
+    def stage_loader(name):
+        return lambda verify=True: rec.loaded[name]
 
     def vad_probs(*a, **kw):
         probs = orig["probs"](*a, **kw)
@@ -156,6 +165,10 @@ def wrappers(rec: Recorder, spans: bool):
                               (transcriber, "merge_chunks_with_overlap", merge),
                               (transcriber, "suspect_detect", suspect)):
             stack.enter_context(patched(obj, name, fn))
+        for kind in rec.plugins:
+            stack.enter_context(patched(assets, kind.LOADER, stage_loader(kind.LOADER)))
+            for obj, name, fn in kind.captures(rec):
+                stack.enter_context(patched(obj, name, fn))
         yield
 
 
@@ -164,7 +177,11 @@ class OfflineCell:
 
     def __init__(self, cfg, mix, seed, device, log=print):
         self.cfg, self.mix, self.seed, self.device, self.log = cfg, mix, seed, device, log
+        self.options = dict(mix.get("options", {}))
+        self.stages = stages.active(cfg, self.options)  # [(name, entry)]
         self.rec = Recorder()
+        self.rec.plugins = [stages.plugin(entry["kind"]) for _, entry in self.stages]
+        self.stage_states = {}
 
     def setup(self, workdir):
         """Weights, the pool written as WAV files, the VAD's state as a
@@ -173,6 +190,9 @@ class OfflineCell:
         vad, self.vad_weights = weights.silero(self.cfg, self.seed, self.device)
         self.rec.silero = ({k: v.cpu().numpy() for k, v in vad.state_dict().items()}, vad.cfg)
         del vad
+        for (name, entry), kind in zip(self.stages, self.rec.plugins):
+            self.stage_states[name] = weights.stage(entry, self.seed, self.device)
+            self.rec.loaded[kind.LOADER] = self.stage_states[name]
         rec = self.rec
 
         def keep_embed(module, inputs, output):
@@ -192,15 +212,20 @@ class OfflineCell:
         others = [int(i) for i in traffic.rng(self.seed, 4).permutation(len(self.pool)) if i != longest]
         self.sample = sorted([longest] + others[: n - 1])
 
+    def stage_refs(self):
+        """[(entry, state)] of the cell's stage models, for the check."""
+        return [(entry, self.stage_states[name][0]) for name, entry in self.stages]
+
     def request(self, index):
         """One request of the closed loop: (wall s, audio s, result)."""
         from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import TranscriberPipeline
 
         path, dur = self.pool[index % len(self.pool)]
-        self.rec.capture = index if index in self.sample else None
+        # A sampled request is kept once: the first time it runs.
+        self.rec.capture = index if index in self.sample and index not in self.rec.captured else None
         try:
             t0 = time.perf_counter()
-            res = TranscriberPipeline(path, self.model, {}).run()
+            res = TranscriberPipeline(path, self.model, dict(self.options)).run()
             wall = time.perf_counter() - t0
         finally:
             self.rec.capture = None
@@ -211,11 +236,12 @@ class OfflineCell:
     def warm(self):
         """One request of the pool's shortest file: every shape the cell's
         requests use (the decode batch is fixed at 8 x 33 s, VAD blocks at
-        1,875 windows)."""
+        1,875 windows; the diarizer's superblocks at 64 windows, ViBERT's
+        minibatches at 32 rows of a power-of-two length)."""
         from sherpa_vietnamese_asr_tpu_torch.pipeline.transcriber import TranscriberPipeline
 
         shortest = int(np.argmin([d for _, d in self.pool]))
-        TranscriberPipeline(self.pool[shortest][0], self.model, {}).run()
+        TranscriberPipeline(self.pool[shortest][0], self.model, dict(self.options)).run()
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         self.rec.rows.clear()

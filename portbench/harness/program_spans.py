@@ -83,3 +83,14 @@ def counter_share(t, part, rest):
     a = sum(r.counters.get(part, 0) for r in recs)
     b = sum(r.counters.get(rest, 0) for r in recs)
     return 100.0 * a / (a + b) if a + b else None
+
+
+def outside_share(t):
+    """100 x the requests' wall (host clock, from the pipeline's
+    construction to run()'s result) outside their request spans, over that
+    wall, in %: what TranscriberPipeline's constructor costs a request."""
+    recs = records(t)
+    if recs is None:
+        return None
+    wall = sum(r["wall_s"] for r in t["requests"])
+    return 100.0 * (1.0 - _request_ns(recs) / 1e9 / wall)

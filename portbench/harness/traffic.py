@@ -6,7 +6,10 @@ order, so that the seed changes the content and order and not the work.
 Offline mixes ("kind": "offline"): a pool of recordings, cycled in a
 seed-drawn order by one closed-loop client. Their durations are either
 "durations_s" (a list) or "lognormal_s" (the `count` quantiles of a
-log-normal with that median and sigma, clipped to [min, max]).
+log-normal with that median and sigma, clipped to [min, max]); their
+audio is the kind named by "content" with the mix's "content_params".
+"options" is the dict handed to TranscriberPipeline with each request
+({} when the mix has none).
 
 Live mixes ("kind": "live"): `streams` streams fed `piece_s` pieces in real
 time, each from a phase drawn within `phase_spread_s`.
@@ -51,8 +54,9 @@ def offline_pool(mix, seed):
     durs = durations(mix)
     order = rng(seed, 0).permutation(len(durs))
     make = audio_mod.KINDS[mix["content"]]
+    params = mix.get("content_params", {})
     gen = rng(seed, 1)
-    return [(durs[i], make(durs[i], gen)) for i in order]
+    return [(durs[i], make(durs[i], gen, **params)) for i in order]
 
 
 def live_streams(mix, seed, seconds):

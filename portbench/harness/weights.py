@@ -7,6 +7,13 @@ fan_in) (fan_in = the product of the torch shape past its first axis),
 biases N(0, BIAS_STD^2); norm scales, bypass scales and downsample weights
 keep their published initial values (0, 0.5, 0). Silero VAD keeps a fixed
 DFT basis and zero biases, as its random initialisation does.
+
+A stage model of the pipeline (portbench/harness/stages) is drawn from a
+generator of its own, seeded seed + its seed_offset, so that the ASR
+model's and Silero's draws are the same whether a cell has stages or not:
+every weight of two axes or more N(0, 1 / fan_in), every bias N(0,
+BIAS_STD^2), every other one-axis weight (a norm's scale) 1, and what the
+stage's kind fills itself (band edges, norm statistics).
 """
 
 from __future__ import annotations
@@ -101,3 +108,30 @@ def silero(cfg, seed, device):
             getattr(vad, name).copy_(basis)
             weights[name] = basis
     return vad.to(device), weights
+
+
+def stage(entry, seed, device):
+    """(state for the program's loader, {name: numpy}, and the program's
+    config) of one stage model of a configuration's "stages"."""
+    from portbench.harness import stages
+
+    kind = stages.plugin(entry["kind"])
+    gen = torch.Generator(device=device).manual_seed(seed + entry["seed_offset"])
+    with torch.device(device):
+        module = kind.program_module(entry["widths"])
+    params = [(n.rsplit(".", 1)[-1], p) for n, p in module.named_parameters()
+              if n.rsplit(".", 1)[-1] not in kind.KEEP]
+    drawn = [(leaf, p) for leaf, p in params if p.dim() >= 2 or leaf.startswith("bias")]
+    flat = torch.randn(sum(p.numel() for _, p in drawn), generator=gen, device=device)
+    i = 0
+    with torch.no_grad():
+        for leaf, p in drawn:
+            draw = flat[i: i + p.numel()].view(p.shape)
+            i += p.numel()
+            p.copy_(draw / math.sqrt(math.prod(p.shape[1:])) if p.dim() >= 2 else draw * BIAS_STD)
+        for _, p in params:
+            if p.dim() < 2 and not any(p is q for _, q in drawn):
+                p.fill_(1.0)
+    kind.fill(module, gen, device)
+    state = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+    return state, module.cfg

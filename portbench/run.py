@@ -22,6 +22,29 @@ os.environ["USE_FLAX"] = "0"
 # One host thread for CPU math: the host-bound requests run on shared cores.
 for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
     os.environ[var] = "1"
+
+
+def keep_heap():
+    """Have glibc's allocator serve every block from its heap and keep
+    what is freed there (mallopt M_MMAP_MAX 0, M_TRIM_THRESHOLD 2 GiB).
+    By default each array over the mmap threshold (a request's audio,
+    features and words run to tens of MB) is a fresh mapping that the
+    kernel faults in page by page and unmaps when freed: 7-8 s of kernel
+    time in a 51 s long-form window on an H100 host whose kernel is
+    sandboxed, a cost that moves with the host's load. This process
+    only: the programs it starts (nvcc, nvidia-smi) keep the defaults."""
+    import ctypes
+
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):  # not glibc: its defaults stand
+        return
+    m_trim_threshold, m_mmap_max = -1, -4
+    mallopt(m_mmap_max, 0)
+    mallopt(m_trim_threshold, 2**31 - 1)
+
+
+keep_heap()
 sys.path.insert(0, ROOT)
 
 from portbench.harness.cell import main  # noqa: E402

@@ -1,20 +1,23 @@
 """The control fails the check: the reference put in the program's place,
 one precision step below the configuration's (TF32 for float32, fp8 for
-the bfloat16 encoder), judged against the cell's limits, at the cell's
-widths on shorter traffic. On the card only: TF32 exists there alone."""
-
-import tempfile
+the bfloat16 encoder; TF32 for the meeting cell's stage models), judged
+against the cell's limits, at the cell's widths on shorter traffic. On the
+card only: TF32 exists there alone."""
 
 import pytest
 
-from portbench.harness import cell, check_live, check_offline, traffic, weights
-from portbench.harness.offline import OfflineCell
+from portbench import readings
+from portbench.harness import cell, check_live, traffic, weights
 
 pytestmark = pytest.mark.card
 
 SHORTER = {"longform": {"durations_s": [90, 60], "check_requests": 2},
            "uploads": {"lognormal_s": {"median": 15, "sigma": 0.8, "min": 3, "max": 90, "count": 4},
-                       "check_requests": 2}}
+                       "check_requests": 2},
+           "meeting": {"durations_s": [90, 60], "check_requests": 2},
+           "punctuated": {"durations_s": [90, 60], "check_requests": 2}}
+# The stage models' numbers: the control fails one of them as well.
+STAGE_CHECKS = ("seg_rel_err", "embed_cos_gap", "punct_logit_gap", "dnsmos_abs_err")
 
 
 def failed(checks, limits):
@@ -22,18 +25,15 @@ def failed(checks, limits):
 
 
 @pytest.mark.parametrize("workload", ["zipformer30m-fp32.longform", "zipformer68m-bf16.longform",
-                                      "zipformer30m-fp32.uploads"])
+                                      "zipformer30m-fp32.uploads", "zipformer30m-fp32.meeting",
+                                      "zipformer30m-fp32.punctuated"])
 def test_offline_control_is_not_correct(workload, card):
     _, _, cfg, mix, limits = cell.spec(workload)
     mix = dict(mix, **SHORTER[mix_name(workload)])
-    oc = OfflineCell(cfg, mix, 41, card)
-    with tempfile.TemporaryDirectory(prefix="portbench-") as work:
-        oc.setup(work)
-        requests = [(oc.pool[i][0], check_offline.control_outputs(cfg, oc.weights, oc.vad_weights,
-                                                                   oc.pool[i][0], card, cfg["control"]))
-                    for i in oc.sample]
-        checks = check_offline.judge_all(cfg, oc.weights, oc.vad_weights, requests, card)
+    checks = readings.offline_control_checks(cfg, mix, 41, card)
     assert failed(checks, limits), checks
+    new = [k for k in STAGE_CHECKS if k in limits]
+    assert not new or failed(checks, {k: limits[k] for k in new}), checks
 
 
 def test_live_control_is_not_correct(card):

@@ -2,7 +2,8 @@
 rest of a run (the look for a card skipped) on the tiny preset, the
 program's plain twins on the CPU, once for each fault a cell can have.
 Offline cells carry no state between steps of the decode and run on one
-chip; their VAD carries its LSTM state across blocks of 60 s."""
+chip; their VAD carries its LSTM state across blocks of 60 s. The stage
+models of the meeting and punctuated cells each get a fault of their own."""
 
 import time
 
@@ -140,3 +141,64 @@ def test_live_fault_is_not_correct(fault, monkeypatch):
     fault(monkeypatch)
     res = run("zipformer30m-fp32.live8", dict(SHORT["live8"], streams=4), seconds=2.5)  # 3 chunks
     assert res["correct"] is False, res["checks"]
+
+
+def lstm_one_direction(monkeypatch):
+    """PyanNet's LSTM with its backward direction left out (zero)."""
+    orig = torch.nn.LSTM.forward
+
+    def forward(self, x, *a, **kw):
+        out, state = orig(self, x, *a, **kw)
+        if self.bidirectional:
+            out = torch.cat([out[..., : self.hidden_size], torch.zeros_like(out[..., self.hidden_size:])], -1)
+        return out, state
+
+    monkeypatch.setattr(torch.nn.LSTM, "forward", forward)
+
+
+def bn_fold_left_out(monkeypatch):
+    """ResNet34's first convolution without its BatchNorm folded in."""
+    from sherpa_vietnamese_asr_tpu_torch.models import resnet_speaker
+
+    orig = resnet_speaker.ResNetSpeaker.folded_convs
+
+    def folded_convs(self):
+        convs = list(orig(self))
+        w, b, stride, padding = convs[0]
+        convs[0] = (self.resnet.conv1.weight, torch.zeros_like(b), stride, padding)
+        return convs
+
+    monkeypatch.setattr(resnet_speaker.ResNetSpeaker, "folded_convs", folded_convs)
+
+
+def attention_mask_left_out(monkeypatch):
+    """ViBERT attending to the padding of every row."""
+    from sherpa_vietnamese_asr_tpu_torch.models import vibert
+
+    orig = vibert.ViBert.forward
+    monkeypatch.setattr(vibert.ViBert, "forward",
+                        lambda self, ids, att, types, offs: orig(self, ids, torch.ones_like(att), types, offs))
+
+
+def dnsmos_heads_swapped(monkeypatch):
+    """DNSMOS's SIG and BAK scores swapped."""
+    from sherpa_vietnamese_asr_tpu_torch.models import dnsmos
+
+    orig = dnsmos.Dnsmos.forward
+    monkeypatch.setattr(dnsmos.Dnsmos, "forward", lambda self, audio: orig(self, audio)[:, [1, 0, 2]])
+
+
+@pytest.mark.parametrize("workload, fault, check", [
+    ("zipformer30m-fp32.meeting", lstm_one_direction, "seg_rel_err"),
+    ("zipformer30m-fp32.meeting", bn_fold_left_out, "embed_cos_gap"),
+    ("zipformer30m-fp32.meeting", attention_mask_left_out, "punct_logit_gap"),
+    ("zipformer30m-fp32.meeting", dnsmos_heads_swapped, "dnsmos_abs_err"),
+    ("zipformer30m-fp32.punctuated", attention_mask_left_out, "punct_logit_gap"),
+    ("zipformer30m-fp32.punctuated", dnsmos_heads_swapped, "dnsmos_abs_err"),
+    ("zipformer30m-fp32.punctuated", altered_beam, "token_logp_gap"),
+    ("zipformer30m-fp32.punctuated", half_batch, "encoder_rel_err")])
+def test_stage_cell_fault_is_not_correct(workload, fault, check, monkeypatch):
+    fault(monkeypatch)
+    res = run(workload, SHORT[workload.split(".")[1]])
+    assert res["correct"] is False, res["checks"]
+    assert not float(res["checks"][check]["value"]) <= res["checks"][check]["limit"], res["checks"]

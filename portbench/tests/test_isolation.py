@@ -21,9 +21,11 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 HARNESS = ["portbench.harness.cell", "portbench.harness.offline", "portbench.harness.live",
            "portbench.harness.check_offline", "portbench.harness.check_live",
-           "portbench.harness.weights", "portbench.harness.readers", "portbench.readings"]
+           "portbench.harness.weights", "portbench.harness.readers", "portbench.readings"] + [
+    "portbench.harness.stages." + m for m in ("pyannet", "resnet_speaker", "vibert", "dnsmos")]
 REFERENCE = ["portbench.reference." + m for m in
-             ("host", "vad", "fbank", "zipformer", "streaming", "rnnt", "precision")]
+             ("host", "vad", "fbank", "zipformer", "streaming", "rnnt", "precision",
+              "pyannet", "resnet_speaker", "vibert", "dnsmos")]
 
 
 def top_level_modules(modules):

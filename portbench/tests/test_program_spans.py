@@ -13,6 +13,8 @@ from portbench.harness import cell, program_spans
 NEW = ("decode_wait_share.offline", "decode_words_share.offline", "suspect_share.offline",
        "request_self_share.offline", "decode_wait_share.uploads", "vad_build_share.uploads",
        "decode_pad_share.uploads")
+MEETING = ("diarization_share.meeting", "punctuation_share.meeting", "quality_share.meeting",
+           "request_build_share.meeting")
 S = 1_000_000_000  # ns a second
 SETUP = 100.0  # setup_done, perf_counter seconds
 
@@ -78,7 +80,7 @@ def test_a_lost_or_failed_request_gives_none(fault, monkeypatch):
         t = trace_of(recs, monkeypatch, n_requests=0 if fault == "no requests" else None)
     if fault == "no program records":  # a program without utils/trace
         monkeypatch.setattr(program_spans, "finished", lambda: None)
-    for name in NEW:
+    for name in NEW + MEETING:
         assert read(name, t) is None, name
 
 
@@ -108,3 +110,23 @@ def test_self_share_counts_overlapping_children_once(monkeypatch):
                          "request"))
     t = trace_of([rec], monkeypatch)
     assert read("request_self_share.offline", t) == pytest.approx(5.0)
+
+
+def test_the_meeting_stages_shares(monkeypatch):
+    """quality and diarization are the joins in the request's thread; the
+    background quality_overlapped span is not read; the constructor's time
+    is the wall outside the request span."""
+    recs = []
+    for i in range(2):
+        rec = record(SETUP + 1 + 2 * i)
+        start = rec.spans[-1][1]
+        rec.spans[:0] = [(name, start + int(a * S), start + int(b * S), parent) for name, a, b, parent in (
+            ("quality_overlapped", 0.3, 0.5, "request"), ("quality", 0.9, 0.91, "request"),
+            ("diarization", 0.91, 0.95, "request"), ("punctuation", 0.95, 0.97, "request"))]
+        recs.append(rec)
+    t = trace_of(recs, monkeypatch)
+    t["requests"] = [{"wall_s": 1.25} for _ in recs]
+    assert read("quality_share.meeting", t) == pytest.approx(1.0)
+    assert read("diarization_share.meeting", t) == pytest.approx(4.0)
+    assert read("punctuation_share.meeting", t) == pytest.approx(2.0)
+    assert read("request_build_share.meeting", t) == pytest.approx(20.0)
