@@ -7,18 +7,38 @@ portbench/held_back.json, for cells kept out of it):
 portbench/configs/<config>.json, portbench/traffic/<traffic>.json,
 portbench/metrics/<metric>.py (a `read(trace)` returning a number or
 None) and portbench/limits/<workload>.json.
+
+A traffic file's "kind" names the module that runs it,
+portbench/harness/<kind>.py, which gives
+
+    run(cfg, mix, seed, seconds, trace, device, log) -> (t, checks, attempted, failed)
+    control(cfg, mix, seed, seconds, device) -> checks
+
+`checks` maps each number compared to its reading ({name: float}; the
+limits file says which count), `control` gives the control's readings on
+what a run of that seed compares. `t` is what the metric readers read:
+    "cfg", "trace"       the configuration as run, the --trace flag;
+    "setup_done"         time.perf_counter() when the window opens;
+    "requests"           each finished request of the window,
+                         {"wall_s", "audio_s", "timing", ...};
+    "window_s"           the window's length, first start to last end;
+    "memory_peak_bytes"  torch.cuda.max_memory_allocated() after it (card);
+and with --trace 1
+    "profile"            the profiling.Window of the traced slice, or None;
+    "launches"           what the wrappers recorded of its launches.
+A kind may add keys of its own for its own readers (live: "partials",
+"step_walls", "profiled_steps").
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
 import subprocess
 import sys
-import tempfile
-import time
 
 PB = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PB)
@@ -80,94 +100,12 @@ def card():
     return torch.cuda.get_device_name(0), limit
 
 
-def run_offline(cfg, mix, seed, seconds, trace, device, log):
-    import torch
-
-    from portbench.harness import check_offline, offline, stats
-
-    cell = offline.OfflineCell(cfg, mix, seed, device, log=log)
-    t = {"cfg": cfg, "trace": trace}
-    with tempfile.TemporaryDirectory(prefix="portbench-") as work, \
-            offline.wrappers(cell.rec, spans=trace):
-        cell.setup(work)
-        cell.warm()
-        t["setup_done"] = time.perf_counter()
-        with stats.GcClock() as gc_clock, stats.HostClock() as host_clock:
-            records, failed, attempted, window = cell.window(seconds)
-        t.update(requests=records, window_s=window, rows=list(cell.rec.rows))
-        walls = sorted(r["wall_s"] for r in records)
-        if walls:
-            by_file = {}
-            for r in records:
-                by_file.setdefault(r["audio_s"], []).append(r["wall_s"])
-            log(f"window: {len(walls)} requests in {window:.3f} s, wall min {walls[0]:.4f} median "
-                f"{walls[len(walls) // 2]:.4f} max {walls[-1]:.4f} s; {gc_clock}; "
-                f"{len(t['rows'])} decode launches, {sum(r for r, _ in t['rows'])} real rows, "
-                f"{sum(r['words'] for r in records)} words; order "
-                + " ".join(str(int(r['audio_s'])) for r in records[:len(cell.pool)]))
-            log(f"host: {host_clock}; median wall by file: " + " ".join(
-                f"{int(d)} s {sorted(w)[len(w) // 2]:.4f} ({len(w)})" for d, w in sorted(by_file.items())))
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            t["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
-        if trace:
-            t["profile"], t["launches"] = cell.traced_slice(attempted, mix["trace_requests"])
-            keys = sorted({k for r in records for k in r["timing"]})
-            log("mean request timing (s): " + " ".join(
-                f"{k} {sum(r['timing'][k] for r in records) / max(1, len(records)):.4f}" for k in keys)
-                + f"; wall {sum(r['wall_s'] for r in records) / max(1, len(records)):.4f}"
-                + f"; words {sum(r['words'] for r in records) / max(1, len(records)):.1f}")
-        got = {i: check_offline.program_outputs(cell.rec.captured[i]) for i in cell.sample}
-        paths = {i: cell.pool[i][0] for i in cell.sample}
-        del cell.model
-        cell.rec.captured.clear()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        t_check = time.perf_counter()
-        checks = check_offline.judge_all(cfg, cell.weights, cell.vad_weights,
-                                         [(paths[i], got[i]) for i in cell.sample], device,
-                                         cell.stage_refs())
-        log(f"check: {len(cell.sample)} requests against the reference in "
-            f"{time.perf_counter() - t_check:.3f} s")
-    return t, checks, attempted, failed
-
-
-def run_live(cfg, mix, seed, seconds, trace, device, log):
-    import torch
-
-    from portbench.harness import check_live, live, stats
-
-    cell = live.LiveCell(cfg, mix, seed, device, log=log)
-    t = {"cfg": cfg, "trace": trace}
-    with cell.wrappers(spans=trace):
-        cell.setup(seconds)
-        cell.warm()
-        t["setup_done"] = time.perf_counter()
-        cell.capture = True
-        with stats.GcClock() as gc_clock:
-            run = cell.run(seconds=seconds)
-        cell.capture = False
-        t.update(partials=run["latencies"], step_walls=run["walls"], window_s=run["window_s"])
-        lat, walls = run["latencies"], run["walls"]
-        if lat:
-            log(f"window: {run['steps']} steps, {len(lat)} partials in {run['window_s']:.3f} s; "
-                f"rows a step {len(lat) / max(1, run['steps']):.3f}; step wall ms p50 "
-                f"{1e3 * stats.percentile(walls, 50):.2f} p95 {1e3 * stats.percentile(walls, 95):.2f} "
-                f"max {1e3 * max(walls):.2f}; partial ms p50 {1e3 * stats.percentile(lat, 50):.2f} "
-                f"p95 {1e3 * stats.percentile(lat, 95):.2f} max {1e3 * max(lat):.2f}; {gc_clock}")
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            t["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
-        if trace:
-            t["profile"], traced = cell.traced_slice(mix["trace_steps"])
-            t["profiled_steps"] = traced["steps"] if traced else None
-        enc = check_live.program_outputs(cell.steps_seen, len(cell.streams))
-        del cell.model, cell.rec
-        cell.steps_seen.clear()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        checks = check_live.judge(cfg, cell.weights, cell.streams, enc, run["served"], device)
-    return t, checks, len(run["latencies"]), 0
+def kind(mix):
+    """The module that runs the mix: portbench/harness/<kind>.py."""
+    path = os.path.join(PB, "harness", f"{mix['kind']}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"portbench: traffic kind {mix['kind']!r} has no runner: {path} does not exist")
+    return importlib.import_module(f"portbench.harness.{mix['kind']}")
 
 
 def measure(workload, seed, seconds, trace, device, t_start, root=ROOT, log=None, overrides=None):
@@ -181,8 +119,7 @@ def measure(workload, seed, seconds, trace, device, t_start, root=ROOT, log=None
         mix = dict(mix, **overrides.get("traffic", {}))
         limits = dict(limits, **overrides.get("limits", {}))
     device = torch.device(device)
-    run = run_live if mix["kind"] == "live" else run_offline
-    t, checks, attempted, failed = run(cfg, mix, seed, seconds, trace, device, log)
+    t, checks, attempted, failed = kind(mix).run(cfg, mix, seed, seconds, trace, device, log)
     t["setup_s"] = t["setup_done"] - t_start
     metrics = {}
     for m in metrics_of(bench, workload, trace):

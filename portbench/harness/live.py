@@ -6,6 +6,9 @@ A partial's latency runs from when the piece that completed its chunk was
 due on the schedule to when step() has returned that stream's tokens of the
 step on the host. The benchmark wraps the program's fused_stream_step to
 keep every step's encoder frames for the correctness check.
+
+The kind "live" of a traffic file: `run` is one run of a cell, `control`
+the control's checks on the streams a run would compare.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import time
 
 import torch
 
-from portbench.harness import profiling, traffic, weights
+from portbench.harness import check_live, profiling, stats, traffic, weights
 from portbench.harness.offline import patched
 from portbench.reference.host import StreamWindows
 
@@ -130,3 +133,47 @@ class LiveCell:
 
         window, _ = profiling.profile(fn, log=self.log)
         return window, state.get("run")
+
+
+def run(cfg, mix, seed, seconds, trace, device, log):
+    cell = LiveCell(cfg, mix, seed, device, log=log)
+    t = {"cfg": cfg, "trace": trace}
+    with cell.wrappers(spans=trace):
+        cell.setup(seconds)
+        cell.warm()
+        t["setup_done"] = time.perf_counter()
+        cell.capture = True
+        with stats.GcClock() as gc_clock:
+            run = cell.run(seconds=seconds)
+        cell.capture = False
+        t.update(partials=run["latencies"], step_walls=run["walls"], window_s=run["window_s"])
+        lat, walls = run["latencies"], run["walls"]
+        if lat:
+            log(f"window: {run['steps']} steps, {len(lat)} partials in {run['window_s']:.3f} s; "
+                f"rows a step {len(lat) / max(1, run['steps']):.3f}; step wall ms p50 "
+                f"{1e3 * stats.percentile(walls, 50):.2f} p95 {1e3 * stats.percentile(walls, 95):.2f} "
+                f"max {1e3 * max(walls):.2f}; partial ms p50 {1e3 * stats.percentile(lat, 50):.2f} "
+                f"p95 {1e3 * stats.percentile(lat, 95):.2f} max {1e3 * max(lat):.2f}; {gc_clock}")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            t["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+        if trace:
+            t["profile"], traced = cell.traced_slice(mix["trace_steps"])
+            t["profiled_steps"] = traced["steps"] if traced else None
+        enc = check_live.program_outputs(cell.steps_seen, len(cell.streams))
+        del cell.model, cell.rec
+        cell.steps_seen.clear()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        checks = check_live.judge(cfg, cell.weights, cell.streams, enc, run["served"], device)
+    return t, checks, len(run["latencies"]), 0
+
+
+def control(cfg, mix, seed, seconds, device):
+    """The checks of the control on every stream of a live cell, over the
+    whole chunks that `seconds` hold."""
+    _, w = weights.asr_model(cfg, seed, device)
+    streams = traffic.live_streams(mix, seed, seconds)
+    chunks = [int(seconds / 0.64)] * len(streams)
+    enc, served = check_live.control_outputs(cfg, w, streams, chunks, device, cfg["control"]["encoder"])
+    return check_live.judge(cfg, w, streams, enc, served, device)

@@ -16,19 +16,23 @@ BatchedChunkDecoder.decode_spans and _launch. The wrappers keep what
 sampled requests produced for the correctness check; with --trace 1 they
 also count launches, record launch shapes and open the host spans the
 profiler names idle gaps by.
+
+The kind "offline" of a traffic file: `run` is one run of a cell,
+`control` the control's checks on the requests a run would compare.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from portbench.harness import audio as audio_mod
-from portbench.harness import profiling, stages, traffic, weights
+from portbench.harness import check_offline, profiling, stages, stats, traffic, weights
 
 
 class Recorder:
@@ -290,3 +294,72 @@ class OfflineCell:
 
         window, _ = profiling.profile(fn, log=self.log)
         return window, {k: list(v) if isinstance(v, list) else v for k, v in rec.launches.items()}
+
+
+def run(cfg, mix, seed, seconds, trace, device, log):
+    cell = OfflineCell(cfg, mix, seed, device, log=log)
+    t = {"cfg": cfg, "trace": trace}
+    with tempfile.TemporaryDirectory(prefix="portbench-") as work, \
+            wrappers(cell.rec, spans=trace):
+        cell.setup(work)
+        cell.warm()
+        t["setup_done"] = time.perf_counter()
+        with stats.GcClock() as gc_clock, stats.HostClock() as host_clock:
+            records, failed, attempted, window = cell.window(seconds)
+        t.update(requests=records, window_s=window)
+        rows = cell.rec.rows
+        walls = sorted(r["wall_s"] for r in records)
+        if walls:
+            by_file = {}
+            for r in records:
+                by_file.setdefault(r["audio_s"], []).append(r["wall_s"])
+            log(f"window: {len(walls)} requests in {window:.3f} s, wall min {walls[0]:.4f} median "
+                f"{walls[len(walls) // 2]:.4f} max {walls[-1]:.4f} s; {gc_clock}; "
+                f"{len(rows)} decode launches, {sum(r for r, _ in rows)} real rows, "
+                f"{sum(r['words'] for r in records)} words; order "
+                + " ".join(str(int(r['audio_s'])) for r in records[:len(cell.pool)]))
+            log(f"host: {host_clock}; median wall by file: " + " ".join(
+                f"{int(d)} s {sorted(w)[len(w) // 2]:.4f} ({len(w)})" for d, w in sorted(by_file.items())))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            t["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+        if trace:
+            t["profile"], t["launches"] = cell.traced_slice(attempted, mix["trace_requests"])
+            keys = sorted({k for r in records for k in r["timing"]})
+            log("mean request timing (s): " + " ".join(
+                f"{k} {sum(r['timing'][k] for r in records) / max(1, len(records)):.4f}" for k in keys)
+                + f"; wall {sum(r['wall_s'] for r in records) / max(1, len(records)):.4f}"
+                + f"; words {sum(r['words'] for r in records) / max(1, len(records)):.1f}")
+        got = {i: check_offline.program_outputs(cell.rec.captured[i]) for i in cell.sample}
+        paths = {i: cell.pool[i][0] for i in cell.sample}
+        del cell.model
+        cell.rec.captured.clear()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t_check = time.perf_counter()
+        checks = check_offline.judge_all(cfg, cell.weights, cell.vad_weights,
+                                         [(paths[i], got[i]) for i in cell.sample], device,
+                                         cell.stage_refs())
+        log(f"check: {len(cell.sample)} requests against the reference in "
+            f"{time.perf_counter() - t_check:.3f} s")
+    return t, checks, attempted, failed
+
+
+def control(cfg, mix, seed, seconds, device):
+    """The checks of the control on the sampled requests of an offline cell
+    (`seconds` unused: the sample lies in the first pass over the pool).
+    A stage model that follows the program from its own inputs (ViBERT, on
+    the program's subword ids) reads them from the program's run of the same
+    request."""
+    oc = OfflineCell(cfg, mix, seed, device)
+    with tempfile.TemporaryDirectory(prefix="portbench-") as work, wrappers(oc.rec, spans=False):
+        oc.setup(work)
+        if oc.stages:
+            for i in oc.sample:
+                oc.request(i)
+        program = dict(oc.rec.captured)
+        del oc.model
+        requests = [(oc.pool[i][0], check_offline.control_outputs(
+            cfg, oc.weights, oc.vad_weights, oc.pool[i][0], device, cfg["control"], oc.stage_refs(),
+            program.get(i))) for i in oc.sample]
+        return check_offline.judge_all(cfg, oc.weights, oc.vad_weights, requests, device, oc.stage_refs())

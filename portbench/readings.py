@@ -33,40 +33,10 @@ def control_readings(workload, seed, seconds):
     seed would compare."""
     import torch
 
-    from portbench.harness import cell, check_live, traffic, weights
+    from portbench.harness import cell
 
     _, _, cfg, mix, _ = cell.spec(workload)
-    dev = torch.device("cuda")
-    if mix["kind"] == "live":
-        _, w = weights.asr_model(cfg, seed, dev)
-        streams = traffic.live_streams(mix, seed, seconds)
-        chunks = [int(seconds / 0.64)] * len(streams)
-        enc, served = check_live.control_outputs(cfg, w, streams, chunks, dev, cfg["control"]["encoder"])
-        return check_live.judge(cfg, w, streams, enc, served, dev)
-    return offline_control_checks(cfg, mix, seed, dev)
-
-
-def offline_control_checks(cfg, mix, seed, dev):
-    """The checks of the control on the sampled requests of an offline cell.
-    A stage model that follows the program from its own inputs (ViBERT, on
-    the program's subword ids) reads them from the program's run of the same
-    request."""
-    import tempfile
-
-    from portbench.harness import check_offline, offline
-
-    oc = offline.OfflineCell(cfg, mix, seed, dev)
-    with tempfile.TemporaryDirectory(prefix="portbench-") as work, offline.wrappers(oc.rec, spans=False):
-        oc.setup(work)
-        if oc.stages:
-            for i in oc.sample:
-                oc.request(i)
-        program = dict(oc.rec.captured)
-        del oc.model
-        requests = [(oc.pool[i][0], check_offline.control_outputs(
-            cfg, oc.weights, oc.vad_weights, oc.pool[i][0], dev, cfg["control"], oc.stage_refs(),
-            program.get(i))) for i in oc.sample]
-        return check_offline.judge_all(cfg, oc.weights, oc.vad_weights, requests, dev, oc.stage_refs())
+    return cell.kind(mix).control(cfg, mix, seed, seconds, torch.device("cuda"))
 
 
 def main(argv):

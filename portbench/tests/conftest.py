@@ -1,5 +1,6 @@
 """Tests of the benchmark. Those marked `card` need a CUDA device and skip
-without one; they decide inside the fixture, never at import.
+without one; they decide inside the fixture, never at import. A cell's CPU
+preset is data: presets/configs/<config>.json and presets/traffic/<mix>.json.
 
     python -m pytest portbench/tests -q            # CPU: the rest
     python -m pytest portbench/tests -q -m card    # on a machine with a card
@@ -15,54 +16,47 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-TINY = dict(num_encoder_layers=[1, 1, 1], downsampling_factor=[1, 2, 4], encoder_dim=[64, 96, 96],
-            ffn_dim=[96, 128, 128], num_heads=[2, 2, 2], cnn_module_kernel=[15, 15, 7],
-            query_head_dim=16, pos_head_dim=4, value_head_dim=8, pos_dim=16,
-            decoder_dim=128, joiner_dim=128, vocab_size=100,
-            attention_weights="float32")  # the CPU twin of kernel 2 keeps float32 weights
-# The stage models of the tiny preset (the tests' widths of the program's
-# own tests: TINY_RESNET, TINY_VIBERT, a small PyanNet; DNSMOS at full width).
-TINY_WIDTHS = {"segmentation": dict(sinc_filters=16, conv_channels=12, lstm_hidden=16, lstm_layers=2,
-                                    linear_dim=16),
-               "embedding": dict(base_channels=8, blocks=[1, 1, 1, 1], embed_dim=32),
-               "punctuation": dict(vocab_size=200, hidden=32, layers=2, heads=2, intermediate=64,
-                                   max_position=128)}
+PRESETS = os.path.join(ROOT, "portbench", "tests", "presets")
 
 
-def _tiny_stages():
-    with open(os.path.join(ROOT, "portbench", "configs", "zipformer30m-fp32.json")) as f:
-        stages = json.load(f)["stages"]
-    return {name: dict(e, widths=dict(e["widths"], **TINY_WIDTHS.get(name, {}))) for name, e in stages.items()}
+def preset(kind, name):
+    """presets/configs/<config>.json or presets/traffic/<mix>.json: what a
+    CPU run of the benchmark takes in place of the configuration's widths
+    and limits or the mix's traffic."""
+    with open(os.path.join(PRESETS, kind, f"{name}.json")) as f:
+        return json.load(f)
 
 
-TINY["stages"] = _tiny_stages()
-# Short traffic of each mix for CPU runs of the tiny preset.
-SHORT = {"longform": {"durations_s": [20, 40], "check_requests": 2, "trace_requests": 1},
-         "uploads": {"lognormal_s": {"median": 8, "sigma": 0.5, "min": 3, "max": 20, "count": 4},
-                     "check_requests": 2, "trace_requests": 1},
-         "live8": {"streams": 2, "margin_s": 2.0, "trace_steps": 2},
-         "meeting": {"durations_s": [40, 25], "check_requests": 2, "trace_requests": 1},
-         "punctuated": {"durations_s": [40, 25], "check_requests": 2, "trace_requests": 1}}
-
-# Limits of the CPU runs: the program's plain twins on the CPU against the
-# reference (the twin's fbank is a DFT by products: 1e-3 from the FFT).
-CPU_LIMITS = {"vad_max_abs": 1e-5, "plan_mismatches": 0, "fbank_rel_err": 1e-3,
-              "embed_rel_err": 1e-4, "encoder_rel_err": 1e-3, "encoder_pooled_rel_err": 1e-3,
-              "token_logp_gap": 1e-4, "beam_path_deficit": 1e-4,
-              "stream_enc_rel_err": 1e-4, "greedy_gap": 1e-4,
-              "seg_rel_err": 5e-6, "embed_cos_gap": 1e-8, "punct_logit_gap": 1e-4, "dnsmos_abs_err": 3e-5}
-
-
-# The bfloat16 encoder's plain layer (position scores in bf16 too): 1e-2.
-CPU_LIMITS_BF16 = dict(CPU_LIMITS, embed_rel_err=3e-2, encoder_rel_err=3e-2, encoder_pooled_rel_err=3e-2)
-
-
-def cpu_limits(workload):
+def tiny(config):
+    """The configuration's tiny widths: the preset's "tiny", and the
+    configuration's stage models (if any) at the preset's "stage_widths"."""
     from portbench.harness import cell
 
-    _, _, cfg, _, limits = cell.spec(workload)
-    table = CPU_LIMITS_BF16 if cfg["compute_dtype"] == "bfloat16" else CPU_LIMITS
-    return {k: table[k] for k in limits}
+    p = preset("configs", config)
+    conf = next(c for c in cell.load_bench(ROOT)["configs"] if c["name"] == config)
+    with open(os.path.join(ROOT, conf["file"])) as f:
+        stages = json.load(f).get("stages")
+    if stages is None:
+        return dict(p["tiny"])
+    widths = p["stage_widths"]
+    return dict(p["tiny"], stages={name: dict(e, widths=dict(e["widths"], **widths.get(name, {})))
+                                   for name, e in stages.items()})
+
+
+def overrides(workload, form="short"):
+    """cell.measure's overrides for a CPU run of the cell: the tiny widths,
+    the CPU limits of the cell's numbers and the mix's traffic of that form
+    ("short", "faults")."""
+    from portbench.harness import cell
+
+    _, entry, _, _, limits = cell.spec(workload)
+    table = preset("configs", entry["config"])["cpu_limits"]
+    return {"config": tiny(entry["config"]), "traffic": preset("traffic", entry["traffic"])[form],
+            "limits": {k: table[k] for k in limits}}
+
+
+TINY = tiny("zipformer30m-fp32")
+TINY_WIDTHS = preset("configs", "zipformer30m-fp32")["stage_widths"]
 
 
 def pytest_configure(config):

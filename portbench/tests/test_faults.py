@@ -10,16 +10,13 @@ import time
 import pytest
 import torch
 
-from conftest import SHORT, TINY, cpu_limits
+from conftest import TINY, overrides
 from portbench.harness import cell
 
-LONG = dict(SHORT["longform"], durations_s=[70, 40])
 
-
-def run(workload, traffic, seconds=1.0):
-    res = cell.measure(workload, 5, seconds, False, "cpu", time.perf_counter(),
-                       overrides={"config": TINY, "traffic": traffic, "limits": cpu_limits(workload)})
-    return res
+def run(workload, form="short", seconds=1.0):
+    return cell.measure(workload, 5, seconds, False, "cpu", time.perf_counter(),
+                        overrides=overrides(workload, form))
 
 
 def altered_beam(monkeypatch):
@@ -75,7 +72,7 @@ def stale_vad_state(monkeypatch):
 @pytest.mark.parametrize("fault", [altered_beam, narrow_beam, half_batch, stale_vad_state])
 def test_offline_fault_is_not_correct(fault, monkeypatch):
     fault(monkeypatch)
-    res = run("zipformer30m-fp32.longform", LONG)
+    res = run("zipformer30m-fp32.longform", "faults")
     assert res["correct"] is False, res["checks"]
 
 
@@ -95,7 +92,7 @@ def padding_leak(monkeypatch):
 @pytest.mark.parametrize("fault", [padding_leak, narrow_beam])
 def test_uploads_fault_is_not_correct(fault, monkeypatch):
     fault(monkeypatch)
-    res = run("zipformer30m-fp32.uploads", SHORT["uploads"])
+    res = run("zipformer30m-fp32.uploads")
     assert res["correct"] is False, res["checks"]
 
 
@@ -139,7 +136,7 @@ def live_altered_token(monkeypatch):
 @pytest.mark.parametrize("fault", [live_state_unchanged, live_half_batch, live_altered_token])
 def test_live_fault_is_not_correct(fault, monkeypatch):
     fault(monkeypatch)
-    res = run("zipformer30m-fp32.live8", dict(SHORT["live8"], streams=4), seconds=2.5)  # 3 chunks
+    res = run("zipformer30m-fp32.live8", "faults", seconds=2.5)  # 3 chunks
     assert res["correct"] is False, res["checks"]
 
 
@@ -199,6 +196,6 @@ def dnsmos_heads_swapped(monkeypatch):
     ("zipformer30m-fp32.punctuated", half_batch, "encoder_rel_err")])
 def test_stage_cell_fault_is_not_correct(workload, fault, check, monkeypatch):
     fault(monkeypatch)
-    res = run(workload, SHORT[workload.split(".")[1]])
+    res = run(workload)
     assert res["correct"] is False, res["checks"]
     assert not float(res["checks"][check]["value"]) <= res["checks"][check]["limit"], res["checks"]

@@ -13,12 +13,11 @@ import time
 import pytest
 import torch
 
-from conftest import ROOT, SHORT, TINY, cpu_limits
+from conftest import ROOT, overrides, preset
 from portbench.harness import cell, profiling
 
 BENCH = cell.load_bench(ROOT)
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
-KERNELS = {"attention_roofline.fp32", "layer_roofline.bf16"}
 
 
 def fake_take_window(fn):
@@ -37,9 +36,7 @@ def fake_take_window(fn):
 
 
 def short_run(workload, trace):
-    traffic = SHORT[workload.split(".")[1]]
-    return cell.measure(workload, 3, 1.0, trace, "cpu", time.perf_counter(),
-                        overrides={"config": TINY, "traffic": traffic, "limits": cpu_limits(workload)})
+    return cell.measure(workload, 3, 1.0, trace, "cpu", time.perf_counter(), overrides=overrides(workload))
 
 
 @pytest.mark.parametrize("trace", [0, 1])
@@ -51,9 +48,11 @@ def test_each_cell_runs_and_its_line_parses(workload, trace, monkeypatch):
     res = json.loads(json.dumps(short_run(workload, bool(trace))))
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] > 0
     want = {m["name"] for m in cell.metrics_of(BENCH, workload, bool(trace))}
-    # On the CPU the encoder's kernels 2 and 4 never launch (their plain twins
-    # run), so their readers find nothing; test_kernel_readers reads them.
-    assert set(res["metrics"]) == want - KERNELS
+    # What a CPU run cannot read (kernels that never launch there: their plain
+    # twins run) is listed in the configuration's preset; test_kernel_readers
+    # reads the kernels' metrics.
+    unread = set(preset("configs", cell.spec(workload)[1]["config"])["cpu_unread"])
+    assert set(res["metrics"]) == want - unread
     assert list(res["checks"])[-1] == list(res)[-1] or list(res)[-1] == "checks"
     if trace:
         assert res["device"]["busy_s"] > 0 and res["device"]["window_s"] > 0

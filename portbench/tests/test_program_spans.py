@@ -1,8 +1,8 @@
 """The readers of the program's request spans and counters
 (harness/program_spans.py and the metrics that use it) on synthetic
 records: the window's requests alone are read, a lost or failed request
-makes every reader give None, and the program's row counters give what the
-benchmark's own row count gives for the same launches."""
+makes every reader give None, and the program's row counters give the
+padded-row share of the same launches."""
 
 import types
 
@@ -95,9 +95,10 @@ def test_pad_share_equals_padded_row_share_for_the_same_launches(monkeypatch):
     per_request = [((1, 8),), ((3, 8),), ((8, 8), (2, 8)), ((1, 8),)]
     recs = [record(SETUP + 1 + 2 * i, launches=ls) for i, ls in enumerate(per_request)]
     t = trace_of(recs, monkeypatch)
-    t["rows"] = [launch for ls in per_request for launch in ls]
+    launches = [launch for ls in per_request for launch in ls]
     got = read("decode_pad_share.uploads", t)
-    assert got == pytest.approx(read("padded_row_share.uploads", t), abs=1e-12)
+    assert got == pytest.approx(100.0 * sum(b - r for r, b in launches) / sum(b for _, b in launches),
+                                abs=1e-12)
     assert got == pytest.approx(100.0 * 25 / 40)
 
 

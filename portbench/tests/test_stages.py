@@ -77,7 +77,7 @@ def test_each_request_hands_the_pipeline_the_mixs_options(workload, monkeypatch,
             return {"segments": [{}]}
 
     monkeypatch.setattr(transcriber, "TranscriberPipeline", Pipeline)
-    oc = offline.OfflineCell(cfg, dict(mix, durations_s=[2, 3]), 1, CPU)
+    oc = offline.OfflineCell(cfg, mix, 1, CPU)
     oc.pool = [(str(tmp_path / "a.wav"), 2.0)]
     oc.sample, oc.model = [], None
     oc.request(0)
